@@ -7,20 +7,34 @@ Drives the port's main paths once, at full width and depth (random weights
 from a seed), in phases, each printing its result:
 
   1. environment: versions, nvcc, optional modules, card name and power limit;
-  2. build: kernels B1 (csrc/ar_decode.cu) and B2 (csrc/attention.cu) with
-     nvcc for sm_90a, both compiles started together;
+  2. build: kernels B1 (csrc/ar_decode.cu), B2 (csrc/attention.cu) and B4
+     (csrc/flash_bwd.cu) with nvcc for sm_90a, all compiles started together;
   3. kernel vs plain: B1 (fused AR decode) against its plain PyTorch
      version, teacher-forced on the kernel's picks, at PARSeq-S's M = 128
      and at patch16-224's M = 196; B2 (fused no-split attention) at
      ViTSTR's (L, h, D) = (197, 6, 384), patch16-224's (196, 6, 384) and
-     ABINet's (256, 8, 512); all at B = 1, 7, 256;
-  4. main paths: hub.parseq(), hub.vitstr(), hub.parseq_patch16_224() and
-     hub.abinet() on cuda in bf16 read batches of 1, 7 and 256 NHWC images;
-     each model's kernel launch counts are set to 0 just before its reads and
-     must have risen just after; bf16 kernel path vs the f32 plain path;
-  5. times at B = 256 (CUDA events, median of 20 after warm-up): each kernel
-     vs its plain version (B2 also at PARSeq-S's L = 128), and each model's
-     forward in images/s.
+     ABINet's (256, 8, 512); all at B = 1, 7, 256; B4 (attention backward)
+     at PARSeq-S training's (B, h, L, dh) = (48, 6, 128, 64) and
+     (384, 6, 128, 64), in bf16 and f32;
+  4. main paths (inference): hub.parseq(), hub.vitstr(),
+     hub.parseq_patch16_224() and hub.abinet() on cuda in bf16 read batches
+     of 1, 7 and 256 NHWC images; each model's kernel launch counts are set
+     to 0 just before its reads and must have risen just after; bf16 kernel
+     path vs the f32 plain path;
+  5. main path (training): parseq_tpu_torch.cli.train trains PARSeq-S
+     (+experiment=parseq: batch 384, trainer.microbatches 8, bf16) for 12
+     steps on a synthetic LMDB of PIL-rendered words, validating at steps 6
+     and 12; B4's launch count is set to 0 just before and must reach
+     12 layers x microbatches x steps; metrics, checkpoints, a reload and a
+     read from the best checkpoint; one step's gradients with B4 against
+     plain autograd (plain_backward()); step time both ways, peak memory,
+     one profiled step (device busy time, B4's share, the top kernels), and
+     the step at 1, 2 and 4 microbatches;
+  6. times (CUDA events, median of 20 after warm-up; B2 and B4 per call of
+     10 back-to-back calls queued behind a GPU spin, i.e. device time): each
+     kernel vs its plain version and one
+     PyTorch library call computing the same function where there is one,
+     beside the kernel's bound; each model's forward in images/s.
 
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the repository beside it, it fails and prints no result. The last lines
@@ -30,21 +44,29 @@ are the kernel table, the card line of nvidia-smi, and
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import math
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SEED = 0
 BATCHES = (1, 7, 256)
 TIMED_BATCH = 256
 TIMED_RUNS = 20
+BACK_TO_BACK = 10  # calls per event pair when timing B2 and B4
+SPIN_CYCLES = 50_000_000  # ~25 ms of GPU clock: longer than the host takes to enqueue them
 # B1 vs plain: the same f32/bf16 roundings, f32 sums in another order.
 KERNEL_ATOL = 1e-2
 # Greedy picks must agree wherever the top-2 margin exceeds bf16 noise.
@@ -66,6 +88,25 @@ EOS_BIAS = 2.0
 # ~1e-2; greedy picks must agree where the f32 top-2 margin exceeds 0.1.
 MAIN_ATOL = 5e-2
 MAIN_MARGIN = 0.1
+# B4 vs plain, relative to the largest reference value of each of dq, dk,
+# dv: bf16 outputs are rounded to bf16 (2^-8 relative) and the f32 sums are
+# taken in another order; f32 outputs differ only by the order of the sums.
+B4_RTOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-5}
+B4_SHAPES = ((48, 6, 128, 64), (384, 6, 128, 64))  # one microbatch, the whole batch
+# One training step's gradients with B4 vs plain autograd, per parameter,
+# relative to its largest plain gradient: both run the bf16 model; plain
+# autograd rounds dP and the products with P to bf16 where B4 keeps f32, and
+# that difference passes back through 12 encoder layers.
+GRAD_RTOL = 5e-2
+TRAIN_STEPS = 12
+TRAIN_WORDS = 4 * 384
+VAL_WORDS = 384
+STEP_TIMED = 6
+# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, bf16 tensor
+# cores, f32 outside the tensor cores.
+HBM_BPS = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 
 
 def phase(name):
@@ -86,7 +127,14 @@ def importable(name):
     return True
 
 
-def cuda_median_ms(fn, runs=TIMED_RUNS, warmup=3):
+def cuda_median_ms(fn, runs=TIMED_RUNS, warmup=3, calls=1):
+    """Median over `runs` of the time per call between two CUDA events.
+
+    calls = 1 (the long model forwards and B1): one call per event pair, the
+    wrapper's host work included. calls > 1 (B2, B4 and their plain and
+    library counterparts): the card first spins for ~25 ms
+    (torch.cuda._sleep) while the host enqueues `calls` back-to-back calls
+    behind it, so the events time the device work alone."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -94,11 +142,14 @@ def cuda_median_ms(fn, runs=TIMED_RUNS, warmup=3):
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if calls > 1:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -115,10 +166,85 @@ def compare(got, want, atol=KERNEL_ATOL, margin=KERNEL_MARGIN, what='kernel'):
     return err, int(confident.sum())
 
 
-def packed_qkv(B, L, D, gen):
-    """Seeded N(0, 1) bf16 q, k, v as column views of one (B, L, 3D) tensor."""
-    qkv = torch.randn(B, L, 3 * D, generator=gen, device='cuda').to(torch.bfloat16)
+def packed_qkv(B, L, D, gen, dtype=torch.bfloat16):
+    """Seeded N(0, 1) q, k, v as column views of one (B, L, 3D) tensor."""
+    qkv = torch.randn(B, L, 3 * D, generator=gen, device='cuda').to(dtype)
     return qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+
+
+def heads(x, h):
+    """(B, L, h*dh) view -> (B, h, L, dh) view."""
+    B, L, D = x.shape
+    return x.view(B, L, h, D // h).transpose(1, 2)
+
+
+def bound(bytes_moved, bf16_flops=0.0, f32_flops=0.0):
+    """Least time (ms) on the card: the larger of the bytes over HBM rate and
+    the operations over the peak rate of their type; and which one binds."""
+    t_bytes = bytes_moved / HBM_BPS
+    t_ops = bf16_flops / BF16_FLOPS + f32_flops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def b1_bound(B, M, cfg):
+    """B1 wrapper from memory (B, M, D) bf16 to logits (B, n, C) f32: reads
+    memory and the bf16 decoder weights once, writes the logits. bf16-input
+    products: the cross-attention K/V of memory, then per step and row the
+    self k|v, self out, cross q, cross out, MLP and head matvecs; f32: the
+    f32 queries against the bf16 memory keys and the self-attention cache."""
+    D, n, C = cfg.embed_dim, cfg.num_steps, cfg.num_classes
+    F_ = int(D * cfg.dec_mlp_ratio)
+    weights = 2 * (2 * D * D + 3 * D * D + 2 * D * F_ + C * D + cfg.num_tokens * D)
+    bytes_moved = B * M * D * 2 + weights + B * n * C * 4
+    bf16 = 2 * B * M * D * 2 * D + B * n * 2 * (2 * D * D + 3 * D * D + 2 * D * F_ + D * C)
+    f32 = B * n * (2 * 2 * M * D + 2 * 2 * (n + 1) / 2 * D)
+    return bound(bytes_moved, bf16, f32)
+
+
+def b2_bound(B, L, h, D):
+    """q, k, v read once, o written once (bf16); QK^T and PV in bf16."""
+    return bound(4 * B * L * D * 2, bf16_flops=4 * B * h * L * L * (D // h))
+
+
+def b4_bound(B, h, L, dh, elt=2):
+    """q, k, v, dO read once, dq, dk, dv written once; QK^T, dO V^T, P^T dO,
+    dS K, dS^T Q on inputs of the operands' type."""
+    flops = 10 * B * h * L * L * dh
+    return bound(7 * B * h * L * dh * elt, **({'bf16_flops': flops} if elt == 2
+                                             else {'f32_flops': flops}))
+
+
+def b4_case(B, h, L, dh, gen, dtype):
+    """Operands of B4 as views of one packed projection, dO, and output views
+    of one packed gradient, as the training path gives them."""
+    D = h * dh
+    qkv = torch.randn(B, L, 3 * D, generator=gen, device='cuda').to(dtype)
+    parts = [heads(qkv[..., i * D:(i + 1) * D], h) for i in range(3)]
+    do = torch.randn(B, h, L, dh, generator=gen, device='cuda').to(dtype)
+    grad = torch.empty_like(qkv)
+    outs = [heads(grad[..., i * D:(i + 1) * D], h) for i in range(3)]
+    return parts, do, outs
+
+
+def render_word(text):
+    """A PNG of `text` in PIL's default font, black on a light background."""
+    from PIL import Image, ImageDraw
+
+    img = Image.new('RGB', (8 * len(text) + 8, 24), (235, 235, 225))
+    ImageDraw.Draw(img).text((4, 6), text, fill=(10, 10, 10))
+    buf = io.BytesIO()
+    img.save(buf, 'PNG')
+    return buf.getvalue()
+
+
+def write_lmdb(path, words):
+    from parseq_tpu_torch.data.lmdb import LmdbWriter
+
+    with LmdbWriter(path) as w:
+        w.put(b'num-samples', str(len(words)).encode())
+        for i, word in enumerate(words, start=1):
+            w.put(f'image-{i:09d}'.encode(), render_word(word))
+            w.put(f'label-{i:09d}'.encode(), word.encode())
 
 
 def main():
@@ -129,7 +255,7 @@ def main():
     from parseq_tpu_torch.kernels.build import find_nvcc
     from parseq_tpu_torch.models.abinet import ABINet
     from parseq_tpu_torch.models.parseq import PARSeq, PARSeqConfig
-    from parseq_tpu_torch.ops import ar_kernel, attention
+    from parseq_tpu_torch.ops import ar_kernel, attention, flash_bwd
 
     dev = torch.device('cuda')
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -143,15 +269,16 @@ def main():
     print(f'card: {card}; devices {torch.cuda.device_count()}; '
           f'SMs {torch.cuda.get_device_properties(dev).multi_processor_count}')
 
-    phase('2 build (B1 and B2 in parallel)')
+    phase('2 build (B1, B2 and B4 in parallel)')
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(lambda build: build(), (ar_kernel.library, attention.library)))
+    with ThreadPoolExecutor(3) as pool:
+        libs = list(pool.map(lambda build: build(),
+                             (ar_kernel.library, attention.library, flash_bwd.library)))
     print(f'built {", ".join(lib._name for lib in libs)} in {time.perf_counter() - t0:.1f} s')
 
     phase('3 kernel vs plain')
     rng = np.random.default_rng(SEED)
-    b1_err = b2_err = 0.0
+    b1_err = b2_err = b4_err = 0.0
     memories = {}
     b1_models = {}
     with torch.inference_mode():
@@ -200,14 +327,35 @@ def main():
                     msg += 'and contiguous (equal) '
                 print(msg + f'max_abs_err={err:.3e} ok')
 
-    phase('4 main paths on cuda, bf16')
+        for B, h, L, dh in B4_SHAPES:
+            for dtype in (torch.bfloat16, torch.float32):
+                parts, do, outs = b4_case(B, h, L, dh, gen, dtype)
+                flash_bwd.attention_flashbwd_backward(*parts, do, dh ** -0.5, *outs)
+                torch.cuda.synchronize()
+                wants = flash_bwd.attention_flashbwd_backward_reference(*parts, do, dh ** -0.5)
+                errs = []
+                for what, got, want in zip(('dq', 'dk', 'dv'), outs, wants):
+                    err = float((got.float() - want.float()).abs().max())
+                    limit = B4_RTOL[dtype] * float(want.float().abs().max())
+                    if not (got.dtype == dtype and torch.isfinite(got).all() and err <= limit):
+                        raise AssertionError(f'B4 {what} (B, h, L, dh) = {(B, h, L, dh)} {dtype} '
+                                             f'disagrees with its plain version: max_abs_err='
+                                             f'{err} (limit {limit})')
+                    errs.append(err)
+                    if dtype == torch.bfloat16:
+                        b4_err = max(b4_err, err)
+                print(f'B4 (B, h, L, dh)={(B, h, L, dh)} {str(dtype)[6:]}: q, k, v, dq, dk, dv '
+                      f'strided in packed (B, L, 3D); max_abs_err dq/dk/dv '
+                      f'{"/".join(f"{e:.3e}" for e in errs)} ok')
+
+    phase('4 main paths on cuda, bf16 (inference)')
     bundles = {
         'parseq': hub.parseq(seed=SEED),
         'vitstr': hub.vitstr(seed=SEED),
         'parseq-patch16-224': hub.parseq_patch16_224(seed=SEED),
         'abinet': hub.abinet(seed=SEED),
     }
-    main_launches = {'B1': 0, 'B2': 0}
+    main_launches = {'B1': 0, 'B2': 0, 'B4': 0}
     images = {}
     for name, bundle in bundles.items():
         module = bundle.module
@@ -259,7 +407,10 @@ def main():
         print(f'{name} B=7 bf16 kernel path vs f32 plain path ({what}): max_abs_diff={diff:.3e}, '
               f'argmax equal where the f32 margin > {MAIN_MARGIN} ({n_confident} positions)')
 
-    phase(f'5 times at B={TIMED_BATCH} [{card}]')
+    phase(f'5 main path on cuda: PARSeq-S training through cli.train [{card}]')
+    train_info = train_phase(dev, card, main_launches)
+
+    phase(f'6 times [{card}]')
     timed = {}
     with torch.inference_mode():
         for name in ('PARSeq-S', 'PARSeq-S patch16-224'):
@@ -267,42 +418,273 @@ def main():
             timed['B1', name] = (
                 cuda_median_ms(lambda: ar_kernel.ar_decode_fused(model, memory)),
                 cuda_median_ms(lambda: ar_kernel.ar_decode_fused_reference(model, memory)))
-            print(f'B1 ar_decode_fused {name} (M={memory.shape[1]}) [{card}]: kernel '
-                  f'{timed["B1", name][0]:.4f} ms, plain {timed["B1", name][1]:.4f} ms')
+            print(f'B1 ar_decode_fused {name} (M={memory.shape[1]}) B={TIMED_BATCH} [{card}]: '
+                  f'kernel {timed["B1", name][0]:.4f} ms, plain {timed["B1", name][1]:.4f} ms, '
+                  f'bound {b1_bound(TIMED_BATCH, memory.shape[1], model.cfg)[0]:.4f} ms')
         gen = torch.Generator(device=dev).manual_seed(SEED + 1)
         for L, h, D in (*ATTENTION_SHAPES, GATE_SHAPE):
             q, k, v = packed_qkv(TIMED_BATCH, L, D, gen)
-            timed['B2', L] = (
-                cuda_median_ms(lambda: attention.fused_attention_nosplit(q, k, v, h, 0.125)),
-                cuda_median_ms(lambda: attention.fused_attention_nosplit_reference(
-                    q, k, v, h, 0.125)))
-            print(f'B2 fused_attention_nosplit L={L} h={h} D={D} [{card}]: kernel '
-                  f'{timed["B2", L][0]:.4f} ms, plain {timed["B2", L][1]:.4f} ms')
-        for name, bundle in bundles.items():
-            x = torch.from_numpy(images[name][TIMED_BATCH]).to(dev)
-            fwd_ms = cuda_median_ms(lambda: bundle(x))
-            print(f'forward {name} [{card}]: {fwd_ms:.4f} ms = '
-                  f'{TIMED_BATCH / fwd_ms * 1e3:.1f} img/s')
+            qh, kh, vh = heads(q, h), heads(k, h), heads(v, h)
+            timed['B2', L] = tuple(cuda_median_ms(fn, calls=BACK_TO_BACK) for fn in (
+                lambda: attention.fused_attention_nosplit(q, k, v, h, 0.125),
+                lambda: attention.fused_attention_nosplit_reference(q, k, v, h, 0.125),
+                lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=0.125)))
+            print(f'B2 fused_attention_nosplit L={L} h={h} D={D} B={TIMED_BATCH} [{card}]: '
+                  f'kernel {timed["B2", L][0]:.4f} ms, plain {timed["B2", L][1]:.4f} ms, '
+                  f'library (scaled_dot_product_attention) {timed["B2", L][2]:.4f} ms, '
+                  f'bound {b2_bound(TIMED_BATCH, L, h, D)[0]:.4f} ms')
+    for B, h, L, dh in B4_SHAPES:
+        parts, do, outs = b4_case(B, h, L, dh, gen, torch.bfloat16)
+        with torch.inference_mode():
+            kernel_ms = cuda_median_ms(
+                lambda: flash_bwd.attention_flashbwd_backward(*parts, do, dh ** -0.5, *outs),
+                calls=BACK_TO_BACK)
+            plain_ms = cuda_median_ms(
+                lambda: flash_bwd.attention_flashbwd_backward_reference(*parts, do, dh ** -0.5),
+                calls=BACK_TO_BACK)
+        # The library's backward alone: its forward graph is built once,
+        # outside the timed window, and differentiated again on every call.
+        leaves = [t.detach().requires_grad_() for t in parts]
+        out = F.scaled_dot_product_attention(*leaves, scale=dh ** -0.5)
+        library_ms = cuda_median_ms(
+            lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), calls=BACK_TO_BACK)
+        del out, leaves
+        timed['B4', B] = (kernel_ms, plain_ms, library_ms)
+        print(f'B4 attention_flashbwd_backward (B, h, L, dh)={(B, h, L, dh)} bf16 [{card}]: '
+              f'kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library '
+              f'(scaled_dot_product_attention backward) {library_ms:.4f} ms, '
+              f'bound {b4_bound(B, h, L, dh)[0]:.4f} ms')
+    for name, bundle in bundles.items():
+        x = torch.from_numpy(images[name][TIMED_BATCH]).to(dev)
+        fwd_ms = cuda_median_ms(lambda: bundle(x))
+        print(f'forward {name} B={TIMED_BATCH} [{card}]: {fwd_ms:.4f} ms = '
+              f'{TIMED_BATCH / fwd_ms * 1e3:.1f} img/s')
+    print(f'training PARSeq-S B=384 [{card}]: ' + json.dumps(train_info))
 
+    b1_ms, b2_ms, b4_ms = b1_bound(TIMED_BATCH, 128, PARSeqConfig()), b2_bound(
+        TIMED_BATCH, 197, 6, 384), b4_bound(*B4_SHAPES[0])
     print(json.dumps({'kernels': [
         {'name': 'ar_decode_fused', 'route': 'cuda',
          'source': 'parseq_tpu_torch/csrc/ar_decode.cu',
          'replaces': 'parseq_tpu/ops/ar_kernel.py:158',
          'launches': main_launches['B1'], 'max_abs_err': b1_err,
          'ms': timed['B1', 'PARSeq-S'][0], 'plain_ms': timed['B1', 'PARSeq-S'][1],
-         'at': f'B={TIMED_BATCH} M=128 (PARSeq-S)'},
+         'bound_ms': b1_ms[0], 'bound_us': b1_ms[0] * 1e3, 'bound_by': b1_ms[1],
+         'library_ms': None, 'at': f'B={TIMED_BATCH} M=128 (PARSeq-S)'},
         {'name': 'fused_attention_nosplit', 'route': 'cuda',
          'source': 'parseq_tpu_torch/csrc/attention.cu',
          'replaces': 'parseq_tpu/ops/attention.py:146',
          'launches': main_launches['B2'], 'max_abs_err': b2_err,
          'ms': timed['B2', 197][0], 'plain_ms': timed['B2', 197][1],
-         'at': f'B={TIMED_BATCH} L=197 h=6 D=384 (ViTSTR)'},
+         'bound_ms': b2_ms[0], 'bound_us': b2_ms[0] * 1e3, 'bound_by': b2_ms[1],
+         'library_ms': timed['B2', 197][2], 'at': f'B={TIMED_BATCH} L=197 h=6 D=384 (ViTSTR)'},
+        {'name': 'attention_flashbwd_backward', 'route': 'cuda',
+         'source': 'parseq_tpu_torch/csrc/flash_bwd.cu',
+         'replaces': 'parseq_tpu/ops/flash_bwd.py:64',
+         'launches': main_launches['B4'], 'max_abs_err': b4_err,
+         'ms': timed['B4', 48][0], 'plain_ms': timed['B4', 48][1],
+         'bound_ms': b4_ms[0], 'bound_us': b4_ms[0] * 1e3, 'bound_by': b4_ms[1],
+         'library_ms': timed['B4', 48][2],
+         'at': '(B, h, L, dh)=(48, 6, 128, 64) bf16 (PARSeq-S training microbatch)'},
     ]}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),
                                              'count': torch.cuda.device_count()}}))
     return 0
+
+
+def train_phase(dev, card, main_launches):
+    """PARSeq-S trains through cli.train on a synthetic LMDB; checks, reload,
+    the B4-vs-plain gradient comparison and the step times. Returns the
+    numbers it measured."""
+    from parseq_tpu_torch.cli import train as train_cli
+    from parseq_tpu_torch.data.tokenizer import Tokenizer
+    from parseq_tpu_torch.ops import ar_kernel, attention, flash_bwd
+    from parseq_tpu_torch.train.families import get_family
+    from parseq_tpu_torch.train.optim import OptimConfig
+    from parseq_tpu_torch.train.steps import init_state, make_train_step
+    from parseq_tpu_torch.utils.config import compose
+    from parseq_tpu_torch.utils.registry import create_model, load_from_checkpoint
+
+    config = compose('parseq')
+    charset = config['model']['charset_train']
+    batch_size = config['model']['batch_size']
+    mb = config['trainer']['microbatches']
+    depth = config['model']['enc_depth']
+    rng = np.random.default_rng(SEED)
+    letters = np.array(list(charset[:62]))  # digits and letters
+    words = [''.join(rng.choice(letters, rng.integers(3, 11)))
+             for _ in range(TRAIN_WORDS + VAL_WORDS)]
+    root = Path(__file__).resolve().parent / 'build'
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix='smoke-train-', dir=root))
+    try:
+        t0 = time.perf_counter()
+        write_lmdb(tmp / 'data' / 'train' / 'real' / 'synthetic', words[:TRAIN_WORDS])
+        write_lmdb(tmp / 'data' / 'val' / 'synthetic', words[TRAIN_WORDS:])
+        print(f'synthetic LMDB: {TRAIN_WORDS} train / {VAL_WORDS} val PIL-rendered words in '
+              f'{time.perf_counter() - t0:.1f} s')
+
+        flash_bwd.launches = 0
+        ar_kernel.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, best = train_cli.main([
+            '+experiment=parseq', f'data.root_dir={tmp / "data"}',
+            f'trainer.max_steps={TRAIN_STEPS}', f'trainer.val_check_interval={TRAIN_STEPS // 2}',
+            f'--work_dir={tmp / "run"}', f'--seed={SEED}', '--device', 'cuda'])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = flash_bwd.launches
+        peak_run = torch.cuda.max_memory_allocated() / 2 ** 30
+        need = depth * mb * TRAIN_STEPS
+        if launches < need:
+            raise AssertionError(f'training launched B4 {launches} times, expected >= {need}')
+        main_launches['B4'] = launches
+        print(f'cli.train: {TRAIN_STEPS} steps at batch {batch_size}, microbatches {mb}, '
+              f'{wall:.1f} s wall incl. data and 2 validations; B4 launches {launches} '
+              f'(>= {need}); B1 launches in validation '
+              f'{ar_kernel.launches}; '
+              f'peak memory {peak_run:.2f} GiB')
+
+        metrics = [json.loads(line) for line in open(tmp / 'run' / 'metrics.jsonl')]
+        losses = [(m['step'], m['loss'], m['grad_norm']) for m in metrics if 'loss' in m]
+        vals = [m for m in metrics if 'val_accuracy' in m]
+        if not losses or not all(np.isfinite(x) for _, l, g in losses for x in (l, g)):
+            raise AssertionError(f'training metrics not finite: {losses}')
+        if [v['step'] for v in vals] != [TRAIN_STEPS // 2, TRAIN_STEPS] or not all(
+                np.isfinite(v['val_loss']) for v in vals):
+            raise AssertionError(f'validations: {vals}')
+        ckpts = tmp / 'run' / 'checkpoints'
+        for name in ('last.ckpt', 'train_state.ckpt', 'swa.ckpt'):
+            if not (ckpts / name).exists():
+                raise AssertionError(f'{name} missing after training')
+        if state['step'] != TRAIN_STEPS or best is None or not best.exists():
+            raise AssertionError(f'step {state["step"]}, best checkpoint {best}')
+        val_rows = [(v['step'], round(v['val_loss'], 4), v['val_accuracy']) for v in vals]
+        print(f'loss/grad_norm {losses}; validation {val_rows}; '
+              f'checkpoints {sorted(p.name for p in ckpts.iterdir())}')
+
+        bundle = load_from_checkpoint(str(best), device='cuda')
+        x = rng.uniform(-1, 1, (7, 32, 128, 3)).astype(np.float32)
+        logits = bundle(x)
+        labels, confs = bundle.read(x)
+        # 12 steps from random weights: the reads are not words yet, and a
+        # confidence (a product of 26 probabilities) may underflow to 0.
+        if not (logits.shape == (7, 26, 95) and torch.isfinite(logits).all()
+                and len(labels) == 7 and all(set(t) <= set(charset) for t in labels)
+                and all(0.0 <= c <= 1.0 for c in confs)):
+            raise AssertionError(f'read from the checkpoint: {labels} {confs}')
+        print(f'reloaded {best.name} on cuda: read 7 images -> {labels[:3]} ...')
+        del state, bundle
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # One fixed batch, the same weights and dropout bits: one step's gradients
+    # with B4 and under plain_backward().
+    tok = Tokenizer(charset)
+    fixed = {'images': torch.from_numpy(rng.integers(0, 256, (batch_size, 32, 128, 3),
+                                                     dtype=np.uint8)).to(dev),
+             'tgt': torch.from_numpy(tok.encode(words[:batch_size], 25)).to(dev)}
+    family = get_family('parseq')
+    grads = {}
+    for route in ('b4', 'plain'):
+        bundle = create_model('parseq', seed=SEED, device='cuda')
+        model = bundle.module.train()
+        fixed['perms'] = torch.from_numpy(family.prepare(tok, words[:1], bundle.cfg,
+                                                         np.random.default_rng(1))['perms']).to(dev)
+        step = make_train_step(family, bundle.cfg, torch.bfloat16, microbatches=mb)
+        state = init_state(model, OptimConfig(total_steps=100, batch_size=batch_size))
+        gen = torch.Generator(device=dev).manual_seed(7)
+        with (attention.plain_backward() if route == 'plain' else contextlib.nullcontext()):
+            before = flash_bwd.launches
+            # lr 0 keeps the weights: only the gradients are compared
+            state['opt_state'].sched = lambda _: 0.0
+            step(state, dict(fixed), gen)
+            if (flash_bwd.launches > before) != (route == 'b4'):
+                raise AssertionError(f'route {route}: B4 launches {flash_bwd.launches - before}')
+        grads[route] = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        del bundle, model, state
+    worst = (0.0, '')
+    for n, g in grads['plain'].items():
+        rel = float((grads['b4'][n] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+        worst = max(worst, (rel, n))
+    if worst[0] > GRAD_RTOL:
+        raise AssertionError(f'gradients with B4 vs plain autograd: {worst[1]} differs by '
+                             f'{worst[0]:.3e} of its largest value (limit {GRAD_RTOL})')
+    print(f'one step, B4 vs plain backward: worst per-parameter max|diff| / max|grad| '
+          f'{worst[0]:.3e} ({worst[1]}), limit {GRAD_RTOL}')
+    del grads
+
+    # Step times on the fixed batch, in turns: B4, plain, plain, B4.
+    bundle = create_model('parseq', seed=SEED, device='cuda')
+    model = bundle.module.train()
+    step = make_train_step(family, bundle.cfg, torch.bfloat16, microbatches=mb)
+    state = init_state(model, OptimConfig(total_steps=100, batch_size=batch_size))
+    times = {'b4': [], 'plain': []}
+    torch.cuda.reset_peak_memory_stats()
+    for route in ('b4', 'plain', 'plain', 'b4'):
+        with (attention.plain_backward() if route == 'plain' else contextlib.nullcontext()):
+            for i in range(STEP_TIMED + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = step(state, dict(fixed), torch.Generator(device=dev).manual_seed(i))
+                torch.cuda.synchronize()
+                if i:  # the first step of each turn is a warm-up
+                    times[route].append((time.perf_counter() - t0) * 1e3)
+                if not (math.isfinite(float(m['loss'])) and math.isfinite(float(m['grad_norm']))):
+                    raise AssertionError(f'train step {route}: loss {m["loss"]}, '
+                                         f'grad_norm {m["grad_norm"]}')
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    b4_ms, plain_ms = statistics.median(times['b4']), statistics.median(times['plain'])
+
+    # Where one step's device time goes (kernel self times; the profiler
+    # slows the host, so shares are taken against the unprofiled step time).
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, dict(fixed), torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type.name == 'CUDA']
+    dev_ms = {e.key: e.self_device_time_total / 1e3 for e in kernels}
+    busy = sum(dev_ms.values())
+    b4_dev = sum(t for k, t in dev_ms.items() if 'rows_kernel' in k or 'cols_kernel' in k)
+    top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:8]
+    print(f'profiled step [{card}]: device busy {busy:.2f} ms = {busy / b4_ms:.1%} of the '
+          f'{b4_ms:.2f} ms step; B4 {b4_dev:.2f} ms ({b4_dev / b4_ms:.1%}); '
+          f'{sum(e.count for e in kernels)} kernel launches; top kernels (ms): '
+          + '; '.join(f'{k[:60]} {t:.2f}' for k, t in top))
+    # The same step at fewer, larger microbatches (the configured 8 was set
+    # on a TPU): time and peak memory, for the port's own choice later.
+    sweep = {}
+    for m in (1, 2, 4):
+        step_m = make_train_step(family, bundle.cfg, torch.bfloat16, microbatches=m)
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for i in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step_m(state, dict(fixed), torch.Generator(device=dev).manual_seed(i))
+            torch.cuda.synchronize()
+            if i:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        sweep[m] = (statistics.median(ms), torch.cuda.max_memory_allocated() / 2 ** 30)
+    print(f'train step B={batch_size} by microbatches [{card}]: '
+          + '; '.join(f'{m}: {t:.2f} ms, peak {g:.2f} GiB' for m, (t, g) in sweep.items())
+          + f'; {mb}: {b4_ms:.2f} ms, peak {peak:.2f} GiB')
+    info = {'step_ms_b4': b4_ms, 'step_ms_plain_backward': plain_ms,
+            'step_ms_by_microbatches': {m: t for m, (t, _) in sweep.items()},
+            'peak_gib_by_microbatches': {m: g for m, (_, g) in sweep.items()},
+            'img_per_s_b4': batch_size / b4_ms * 1e3, 'peak_memory_gib': peak,
+            'peak_memory_gib_cli_run': peak_run, 'microbatches': mb,
+            'b4_launches_per_step': depth * mb, 'grad_rel_diff': worst[0],
+            'device_busy_ms': busy, 'b4_device_ms': b4_dev}
+    print(f'train step B={batch_size} (microbatches {mb}) [{card}]: B4 {b4_ms:.2f} ms '
+          f'({batch_size / b4_ms * 1e3:.1f} img/s), plain backward {plain_ms:.2f} ms; '
+          f'peak memory {peak:.2f} GiB; all steps B4 {[round(t, 2) for t in times["b4"]]}, '
+          f'plain {[round(t, 2) for t in times["plain"]]}')
+    return info
 
 
 if __name__ == '__main__':

@@ -15,7 +15,7 @@ import argparse
 
 import torch
 
-from parseq_tpu.utils.config import parse_model_args
+from parseq_tpu_torch.utils.config import parse_model_args
 from parseq_tpu_torch.data.transforms import batch_images
 from parseq_tpu_torch.utils.registry import load_from_checkpoint
 

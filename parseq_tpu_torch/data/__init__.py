@@ -1,1 +1,3 @@
-"""Image preprocessing of the port (tokenizer and charset are shared with parseq_tpu.data)."""
+"""Data pipeline of the port: charset, tokenizer, LMDB reader/writer, datasets,
+loader, augment and image preprocessing (framework-free copies of
+parseq_tpu.data, kept in the port so it never imports the JAX package)."""

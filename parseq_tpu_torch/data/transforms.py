@@ -26,6 +26,29 @@ def preprocess_pil(img, img_size=(32, 128), rotation: int = 0) -> np.ndarray:
     return (x - 0.5) / 0.5
 
 
+def preprocess_pil_u8(img, img_size=(32, 128), rotation: int = 0,
+                      fast_decode: bool = True) -> np.ndarray:
+    """PIL image -> (H, W, 3) uint8, resized; normalization deferred to the
+    device (train/steps.py:normalize_u8 keeps the exact op order, so the
+    values equal preprocess_pil's).
+
+    ``fast_decode`` engages libjpeg's DCT-scaled decode (PIL ``draft``) for
+    JPEG sources at least 2x the target in both dims; no-op for PNG and small
+    crops. Skipped under rotation (rotate acts on the decoded image).
+    """
+    from PIL import Image
+
+    h, w = img_size
+    if fast_decode and not rotation:
+        img.draft('RGB', (w, h))
+    if img.mode != 'RGB':
+        img = img.convert('RGB')
+    if rotation:
+        img = img.rotate(rotation, expand=True)
+    img = img.resize((w, h), Image.Resampling.BICUBIC)
+    return np.asarray(img, dtype=np.uint8)
+
+
 def load_image(path, img_size=(32, 128), rotation: int = 0) -> np.ndarray:
     from PIL import Image
 

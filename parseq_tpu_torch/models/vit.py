@@ -36,7 +36,7 @@ class ViTConfig:
     num_heads: int = 6
     mlp_ratio: float = 4.0
     class_token: bool = False  # PARSeq encoder: False; ViTSTR: True
-    remat: bool = False  # training-memory lever of the JAX package; unused at inference
+    remat: bool = False  # JAX training-memory lever; the port trains without it
 
     @property
     def grid_size(self) -> tuple[int, int]:

@@ -1,6 +1,6 @@
 """Encoder self-attention and the fused no-split attention kernel B2 (port of
 parseq_tpu/ops/attention.py: encoder_self_attention, fused_attention_nosplit,
-_reference_nosplit, force_einsum).
+_reference_nosplit, force_einsum, _mha_flashbwd).
 
 `encoder_self_attention` routes as the JAX package does: sequences shorter
 than KERNEL_MIN_LEN go through plain einsum attention (`layers.mha`);
@@ -8,6 +8,10 @@ longer ones take the packed q|k|v projection and go to
 `fused_attention_nosplit`, which launches the hand-written CUDA kernel
 `csrc/attention.cu` on a CUDA tensor (or raises) and computes its plain
 PyTorch version, `fused_attention_nosplit_reference`, on a CPU tensor.
+Under autograd (training), a sequence shorter than KERNEL_MIN_LEN whose
+shape the backward kernel takes (L a multiple of 8, dh 32 or 64) sends the
+packed projection to `flash_bwd.attention_flashbwd`, the counterpart of the
+JAX package's `_mha_flashbwd`: einsum forward, kernel-B4 backward.
 
 Numerics of both versions (those of the TPU kernel): scores are f32 sums of
 bf16 products times `scale`; softmax in f32, normalised before the
@@ -23,7 +27,7 @@ import math
 import torch
 
 from parseq_tpu_torch.kernels.build import CSRC, load_library
-from parseq_tpu_torch.ops import layers
+from parseq_tpu_torch.ops import flash_bwd, layers
 
 # Kernel gate, as in the JAX package (its value was measured on a TPU; the
 # port keeps it until its own gate is measured on the H100).
@@ -32,6 +36,10 @@ HEAD_DIM = 64  # the kernel's head width (dh of every L >= 192 user)
 
 # Kernel launches made by fused_attention_nosplit in this process.
 launches = 0
+
+# Training attention below KERNEL_MIN_LEN takes the kernel-B4 backward unless
+# plain_backward() is open.
+_FLASH_BWD = True
 
 
 @contextlib.contextmanager
@@ -45,6 +53,20 @@ def force_einsum():
         yield
     finally:
         KERNEL_MIN_LEN = old
+
+
+@contextlib.contextmanager
+def plain_backward():
+    """Route training encoder self-attention through plain autograd of
+    layers.mha while the context is open (for comparisons; nothing on the
+    main path uses it)."""
+    global _FLASH_BWD
+    old = _FLASH_BWD
+    _FLASH_BWD = False
+    try:
+        yield
+    finally:
+        _FLASH_BWD = old
 
 
 def fused_attention_nosplit_reference(q, k, v, num_heads, scale):
@@ -126,10 +148,17 @@ def fused_attention_nosplit(q, k, v, num_heads, scale):
 
 def encoder_self_attention(x, in_weight, in_bias, out_weight, out_bias, num_heads):
     """layers.mha(x, x, x) with no mask. At L >= KERNEL_MIN_LEN the packed
-    q|k|v projection feeds kernel B2 through strided views (no copies)."""
-    if x.shape[1] < KERNEL_MIN_LEN:
+    q|k|v projection feeds kernel B2 through strided views (no copies);
+    below it, under autograd, it feeds attention_flashbwd (kernel B4 in the
+    backward) when the kernel takes the shape."""
+    B, L, D = x.shape
+    if L < KERNEL_MIN_LEN:
+        training = torch.is_grad_enabled() and (x.requires_grad or in_weight.requires_grad)
+        if training and _FLASH_BWD and flash_bwd.kernel_takes(L, D // num_heads):
+            qkv = layers.linear(x, in_weight, in_bias)
+            o = flash_bwd.attention_flashbwd(qkv, num_heads, 1.0 / math.sqrt(D // num_heads))
+            return layers.linear(o, out_weight, out_bias)
         return layers.mha(x, x, x, in_weight, in_bias, out_weight, out_bias, num_heads=num_heads)
-    D = x.shape[-1]
     qkv = layers.linear(x, in_weight, in_bias)
     o = fused_attention_nosplit(qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:], num_heads,
                                 1.0 / math.sqrt(D // num_heads))

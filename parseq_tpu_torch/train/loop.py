@@ -1,0 +1,247 @@
+"""Training loop: OneCycle + SWA, validation, top-k checkpoints, resume (port of
+the PARSeq path of parseq_tpu/train/loop.py:train).
+
+One device, eager PyTorch: each loader batch moves to the device as uint8
+and is normalized there; the train step (train/steps.py) splits it into
+`trainer.microbatches` equal slices and applies one AdamW update. Every
+`val_check_interval` steps the loop validates (accuracy, NED, confidence,
+loss over the val tree), keeps the top-3 checkpoints by val accuracy plus
+`last.ckpt`, and writes the resumable `train_state.ckpt` (model, optimizer,
+step) and the `swa_state.ckpt` sidecar. `metrics.jsonl` and TensorBoard
+events record the run.
+
+Not ported yet (ROADMAP.md): several devices (queue A item 10), the other
+families' training, CTC validation, and compiled-step reuse across calls.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from parseq_tpu_torch.data.module import SceneTextDataModule
+from parseq_tpu_torch.train import optim
+from parseq_tpu_torch.train.evaluate import BatchResult, score_decoded, summarize
+from parseq_tpu_torch.train.families import get_family
+from parseq_tpu_torch.train.steps import init_state, make_train_step, normalize_u8
+from parseq_tpu_torch.utils.checkpoint import save_checkpoint, save_topk
+from parseq_tpu_torch.utils.registry import create_model
+from parseq_tpu_torch.utils.tbevents import TBEventWriter
+
+log = logging.getLogger(__name__)
+
+_KNOWN_DATA = {'root_dir', 'train_dir', 'batch_size', 'num_workers', 'augment',
+               'remove_whitespace', 'normalize_unicode', 'min_image_dim', 'rotation', 'img_size',
+               'charset_train', 'charset_test', 'max_label_length'}
+_KNOWN_TRAINER = {'microbatches', 'val_check_interval', 'max_epochs', 'max_steps',
+                  'gradient_clip_val', 'devices', 'swa', 'limit_train_batches',
+                  'accumulate_grad_batches', 'swa_epoch_start', 'multihost'}
+
+
+class JsonlLogger:
+    def __init__(self, path):
+        self.path = Path(path)
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+
+    def log(self, **kv):
+        with open(self.path, 'a') as f:
+            f.write(json.dumps(kv) + '\n')
+
+
+def _dropout_generator(device, seed, step):
+    """Dropout bits of one step come from a generator seeded by (seed, step),
+    so a resumed run draws what the uninterrupted run would have."""
+    return torch.Generator(device=device).manual_seed(seed * (1 << 32) + step)
+
+
+def train(config: dict, work_dir, *, compute_dtype=torch.bfloat16, max_steps: int | None = None,
+          seed: int = 0, device='cuda', val_callback=None):
+    """Run training from a composed config dict (utils.config.compose()).
+
+    val_callback, if given, is called after every validation with a metrics
+    dict (step, training_iteration, loss, NED, accuracy); returning True
+    stops training. Returns (state, best checkpoint path)."""
+    device = torch.device(device)
+    work_dir = Path(work_dir)
+    work_dir.mkdir(parents=True, exist_ok=True)
+    (work_dir / 'config.json').write_text(json.dumps(config, indent=2, default=str))
+    mcfg, dcfg, tcfg = config['model'], config['data'], config['trainer']
+    name = mcfg.get('name', 'parseq')
+
+    unknown = set(dcfg) - _KNOWN_DATA
+    if unknown:
+        raise ValueError(f'unknown data config key(s): {sorted(unknown)}; '
+                         f'accepted: {sorted(_KNOWN_DATA)}')
+    unknown = set(tcfg) - _KNOWN_TRAINER
+    if unknown:
+        raise ValueError(f'unknown trainer config key(s): {sorted(unknown)}; '
+                         f'accepted: {sorted(_KNOWN_TRAINER)}')
+    if tcfg.get('devices', 1) != 1 or tcfg.get('multihost'):
+        raise NotImplementedError('training on several devices is not ported to PyTorch yet '
+                                  '(ROADMAP.md queue A item 10); set trainer.devices=1')
+    family = get_family(name)
+
+    bundle = create_model(name, seed=seed, dtype=compute_dtype, device=device,
+                          **{k: v for k, v in mcfg.items() if k != 'name'})
+    cfg, tok, model = bundle.cfg, bundle.tokenizer, bundle.module
+    if config.get('pretrained'):
+        from parseq_tpu_torch.utils.registry import load_from_checkpoint
+
+        pre = load_from_checkpoint(config['pretrained'], device=device,
+                                   **{k: v for k, v in mcfg.items() if k != 'name'})
+        model.load_state_dict(pre.module.state_dict())
+        log.info(f'loaded pretrained weights from {config["pretrained"]}')
+    model.train()
+
+    dm = SceneTextDataModule(
+        dcfg.get('root_dir', 'data'), dcfg.get('train_dir', 'real'),
+        dcfg.get('img_size', mcfg['img_size']),
+        dcfg.get('max_label_length', mcfg['max_label_length']),
+        dcfg.get('charset_train', mcfg['charset_train']),
+        dcfg.get('charset_test') or mcfg.get('charset_test') or mcfg['charset_train'],
+        dcfg.get('batch_size', mcfg.get('batch_size', 384)),
+        dcfg.get('num_workers', 2), dcfg.get('augment', True),
+        dcfg.get('remove_whitespace', True), dcfg.get('normalize_unicode', True),
+        min_image_dim=dcfg.get('min_image_dim', 0), rotation=dcfg.get('rotation', 0),
+    )
+    train_loader = dm.train_dataloader(seed=seed)
+    if len(train_loader) == 0:
+        raise ValueError(f'empty training loader: {len(dm.train_dataset)} samples with '
+                         f'batch_size={dm.batch_size} (drop_last) yields no batches')
+    steps_per_epoch = max(1, int(len(train_loader) * tcfg.get('limit_train_batches', 1.0)))
+    # accumulate_grad_batches: one optimizer step per `agb` loader batches;
+    # max_steps and val_check_interval count optimizer steps, the loop counts
+    # loader batches.
+    agb = max(1, int(tcfg.get('accumulate_grad_batches', 1)))
+    total_steps = (tcfg.get('max_steps')
+                   or max(1, steps_per_epoch // agb) * tcfg.get('max_epochs', 20))
+    if max_steps is not None:
+        total_steps = min(total_steps, max_steps)
+    total_micro = total_steps * agb
+    val_every_micro = tcfg.get('val_check_interval', 1000) * agb
+
+    ocfg = optim.OptimConfig(
+        lr=mcfg['lr'], weight_decay=mcfg.get('weight_decay', 0.0),
+        warmup_pct=mcfg.get('warmup_pct', 0.075), batch_size=dm.batch_size,
+        grad_clip=tcfg.get('gradient_clip_val', 20.0), total_steps=total_steps, num_devices=1,
+        accum=agb, swa=tcfg.get('swa', True), swa_epoch_start=tcfg.get('swa_epoch_start', 0.75))
+    state = init_state(model, ocfg, accumulate=agb)
+    params = list(model.parameters())
+    ckpt_dir = work_dir / 'checkpoints'
+
+    start_step = 0
+    swa_state = None
+    resume = config.get('ckpt_path')
+    if resume:
+        saved = torch.load(resume, map_location=device, weights_only=True)
+        model.load_state_dict(saved['model'])
+        state['opt_state'].load_state_dict(saved['opt_state'])
+        start_step = state['step'] = int(saved['step'])
+        swa_path = Path(resume).parent / 'swa_state.ckpt'
+        if swa_path.exists():
+            swa_state = torch.load(swa_path, map_location=device, weights_only=True)
+            log.info(f'resumed SWA average ({swa_state["n"]} snapshots)')
+        log.info(f'resumed training state from {resume} at step {start_step}')
+    # Clamped to step 1: steps count from 1, so swa_epoch_start=0.0 averages
+    # from the first step, not from the never-taken step 0.
+    swa_start = max(1, int(ocfg.swa_epoch_start * total_micro)) if ocfg.swa else total_micro
+
+    mb = max(1, int(tcfg.get('microbatches', 1)))
+    train_step = make_train_step(family, cfg, compute_dtype, microbatches=mb, accumulate=agb)
+    perm_rng = np.random.default_rng(seed)
+    jlog = JsonlLogger(work_dir / 'metrics.jsonl')
+    tb = TBEventWriter(work_dir / 'tb')
+    pad_id = len(tok) - 1
+
+    def validate():
+        model.eval()
+        total = BatchResult()
+        with torch.inference_mode():
+            for images, labels, valid in dm.val_dataloader():
+                x = torch.from_numpy(images).to(device)
+                if x.dtype == torch.uint8:
+                    x = normalize_u8(x)
+                logits = model(x, dtype=compute_dtype)
+                B, T = logits.shape[:2]
+                enc = tok.encode(labels + [''] * (B - len(labels)), cfg.max_label_length)
+                targets = torch.from_numpy(enc[:, 1:T + 1]).long().to(device)
+                ok = (targets != pad_id) & (torch.arange(B, device=device)[:, None] < len(labels))
+                logp = torch.log_softmax(logits.float(), -1)
+                nll = -torch.gather(logp, -1, targets.clamp(0, logits.shape[-1] - 1)[..., None])
+                numel = ok.sum()
+                loss = (nll[..., 0] * ok).sum() / numel.clamp(min=1)
+                ids = logp.argmax(-1)  # lowest index on ties, as jnp.argmax
+                conf = torch.gather(logp.exp(), -1, ids[..., None])[..., 0]
+                preds, pred_probs = tok.decode_ids(ids.cpu().numpy(), conf.cpu().numpy())
+                total.add(score_decoded(bundle.charset_adapter, preds, pred_probs, labels, valid,
+                                        float(loss), int(numel)))
+        model.train()
+        return summarize('val', total), total.loss / max(total.loss_numel, 1)
+
+    step = start_step
+    t_start = time.time()
+    best_path = None
+    stop_early = False
+    n_validations = 0
+    # Resume continues the data stream: same epoch order, consumed batches skipped.
+    start_epoch, skip_batches = divmod(start_step, steps_per_epoch)
+    log.info(f'training {name}: {total_steps} steps, {steps_per_epoch}/epoch on {device}')
+    for epoch in range(start_epoch, 10 ** 9):
+        if step >= total_micro or stop_early:
+            break
+        train_loader.set_epoch(epoch)
+        for bi, (images, labels, _) in enumerate(train_loader):
+            if step >= total_micro or bi >= steps_per_epoch:
+                break
+            if epoch == start_epoch and bi < skip_batches:
+                continue
+            batch = {'images': images, **family.prepare(tok, labels, cfg, perm_rng)}
+            batch = {k: torch.from_numpy(np.asarray(v)).to(device, non_blocking=True)
+                     for k, v in batch.items()}
+            metrics = train_step(state, batch, _dropout_generator(device, seed, step))
+            step += 1
+            if step % 50 == 0 or step == start_step + 1:
+                loss, gnorm = float(metrics['loss']), float(metrics['grad_norm'])
+                lr = state['opt_state'].sched(step // agb)
+                jlog.log(step=step, epoch=epoch, loss=loss, grad_norm=gnorm, lr=lr,
+                         wall=round(time.time() - t_start, 1))
+                tb.add_scalars(step, {'loss': loss, 'grad_norm': gnorm, 'lr': lr})
+            if step % val_every_micro == 0 or step == total_micro:
+                res, val_loss = validate()
+                jlog.log(step=step, val_accuracy=res.accuracy, val_NED=res.ned,
+                         val_loss=float(val_loss), val_confidence=res.confidence)
+                tb.add_scalars(step, {'val_accuracy': res.accuracy, 'val_NED': res.ned,
+                                      'val_loss': float(val_loss), 'hp_metric': res.accuracy})
+                log.info(f'step {step}: val_acc={res.accuracy:.2f} NED={res.ned:.2f} '
+                         f'loss={val_loss:.4f}')
+                best_path = save_topk(ckpt_dir, step, res.accuracy, model.state_dict(), cfg,
+                                      meta={'name': name, 'model_config': mcfg}, k=3)
+                torch.save({'model': model.state_dict(), 'step': step,
+                            'opt_state': state['opt_state'].state_dict()},
+                           ckpt_dir / 'train_state.ckpt')
+                if swa_state is not None:
+                    torch.save(swa_state, ckpt_dir / 'swa_state.ckpt')
+                n_validations += 1
+                if val_callback is not None and val_callback({
+                        'step': step, 'training_iteration': n_validations,
+                        'loss': float(val_loss), 'NED': res.ned, 'accuracy': res.accuracy}):
+                    log.info(f'early stop requested by val_callback at step {step}')
+                    stop_early = True
+                    break
+            if ocfg.swa and step >= swa_start and (step - swa_start) % steps_per_epoch == 0:
+                if swa_state is None:
+                    swa_state = optim.swa_init(params)
+                optim.swa_update(swa_state, params)
+
+    if swa_state is not None and swa_state['n'] > 0:
+        names = [n for n, _ in model.named_parameters()]
+        sd = {**model.state_dict(), **dict(zip(names, swa_state['avg']))}
+        save_checkpoint(ckpt_dir / 'swa.ckpt', sd, cfg,
+                        meta={'name': name, 'model_config': mcfg, 'swa': True})
+    tb.close()
+    return state, best_path

@@ -1,0 +1,88 @@
+"""The train step (port of parseq_tpu/train/steps.py).
+
+Mixed precision as in the JAX package (reference bf16-mixed, train.py:60-64):
+parameters, gradients and optimizer state in float32, forward and backward in
+the compute dtype (layers cast each f32 weight to it at use), loss and
+gradient reduction in float32.
+
+State: {'model': nn.Module (the f32 params), 'opt_state': optim.AdamW,
+'step': int (loader micro-steps taken), 'accum': list or None}. The step
+updates it in place.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from parseq_tpu_torch.train import optim
+
+
+def normalize_u8(x):
+    """uint8 -> f32 in [-1, 1] with the host op order ((x/255 - .5)/.5,
+    reference module.py:80-81), so values equal the f32 host transform's."""
+    return (x.float() / 255.0 - 0.5) / 0.5
+
+
+def normalize_images(batch):
+    """uint8 images -> f32 in [-1, 1] on the device (float input unchanged)."""
+    img = batch['images']
+    if img.dtype == torch.uint8:
+        batch = dict(batch, images=normalize_u8(img))
+    return batch
+
+
+def init_state(model, ocfg: optim.OptimConfig, accumulate=1):
+    """Train state for `model` (f32 params) with a fresh AdamW."""
+    params = [p for p in model.parameters()]
+    return {'model': model, 'opt_state': optim.AdamW(model.named_parameters(), ocfg), 'step': 0,
+            'accum': [torch.zeros_like(p) for p in params] if accumulate > 1 else None}
+
+
+def make_train_step(family, cfg, compute_dtype=torch.bfloat16, microbatches=1, accumulate=1):
+    """family: train.families.TrainFamily. Returns
+    train_step(state, batch: dict of tensors, rng) -> metrics dict.
+
+    ``microbatches`` > 1 splits the batch into equal slices, sums their
+    gradients and divides by the count: equal weights, one optimizer update
+    (the reference's 2-GPU DDP gradient semantics, train.py:65-67).
+    ``accumulate`` > 1 (trainer.accumulate_grad_batches) applies the update
+    on every `accumulate`-th call with the mean of those calls' gradients
+    (optax.MultiSteps in the JAX package). rng: a torch.Generator for
+    dropout, or None. Metrics: loss (mean over microbatches), numel, and
+    grad_norm of this call's gradients, as 0-dim tensors (no host sync)."""
+
+    def train_step(state, batch, rng):
+        model = state['model']
+        params = [p for p in model.parameters()]
+        batch = normalize_images(batch)
+        B = batch['images'].shape[0]
+        m = microbatches if microbatches > 1 and B % microbatches == 0 else 1
+        mb = B // m
+        for p in params:
+            p.grad = None
+        loss_sum = torch.zeros((), device=batch['images'].device)
+        numel_sum = torch.zeros((), dtype=torch.long, device=batch['images'].device)
+        for i in range(m):
+            # per-sample arrays are split; shared ones (the perm set) are not
+            mbatch = {k: v[i * mb:(i + 1) * mb] if v.dim() > 0 and v.shape[0] == B else v
+                      for k, v in batch.items()}
+            loss, numel = family.loss(model, cfg, mbatch, rng, compute_dtype)
+            loss.backward()
+            loss_sum += loss.detach()
+            numel_sum += numel
+        grads = [p.grad for p in params]
+        if m > 1:
+            torch._foreach_div_(grads, m)
+        state['step'] += 1
+        if state['accum'] is None:
+            gnorm = state['opt_state'].step(params, grads)
+        else:
+            gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            torch._foreach_add_(state['accum'], grads)
+            if state['step'] % accumulate == 0:
+                torch._foreach_div_(state['accum'], accumulate)
+                state['opt_state'].step(params, state['accum'])
+                torch._foreach_zero_(state['accum'])
+        return {'loss': loss_sum / m, 'numel': numel_sum, 'grad_norm': gnorm}
+
+    return train_step

@@ -2,9 +2,10 @@
 (port of parseq_tpu/utils/registry.py: the PARSeq, ViTSTR and ABINet
 families; CRNN and TRBA/TRBC raise until ROADMAP queue A item 16).
 
-Configs are composed from the repository's `configs/` groups by the shared,
-framework-free `parseq_tpu.utils.config`. Checkpoints: reference PyTorch
-`.pt` state_dicts load with `load_state_dict(strict=True)`.
+Configs are composed from the repository's `configs/` groups by the port's
+`utils/config.py`. Checkpoints: reference PyTorch `.pt` state_dicts load
+with `load_state_dict(strict=True)`; the port's own training checkpoints
+(`utils/checkpoint.py`, `.ckpt`) load with their stored model config.
 """
 
 from __future__ import annotations
@@ -16,9 +17,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from parseq_tpu.data.charset import CharsetAdapter
-from parseq_tpu.data.tokenizer import Tokenizer
-from parseq_tpu.utils import config as config_lib
+from parseq_tpu_torch.data.charset import CharsetAdapter
+from parseq_tpu_torch.data.tokenizer import Tokenizer
+from parseq_tpu_torch.utils import config as config_lib
 from parseq_tpu_torch.models.abinet import ABINet, ABINetConfig
 from parseq_tpu_torch.models.parseq import PARSeq, PARSeqConfig
 from parseq_tpu_torch.models.vitstr import ViTSTR, ViTSTRConfig
@@ -209,12 +210,23 @@ def create_model(experiment: str, *, seed: int = 0, dtype=torch.bfloat16, device
 
 def load_from_checkpoint(path: str, *, dtype=torch.bfloat16, device='cuda', config_root=None,
                          **kwargs) -> ModelBundle:
-    """Load a reference PyTorch `.pt` state_dict (model family from the file
-    name; a Lightning 'state_dict' wrapper and 'model.' prefixes are stripped)."""
+    """Load a model from
+    - a checkpoint the port's trainer wrote (`.ckpt`, utils/checkpoint.py):
+      its stored model config builds the model; or
+    - a reference PyTorch `.pt` state_dict (model family from the file name;
+      a Lightning 'state_dict' wrapper and 'model.' prefixes are stripped)."""
+    if path.endswith('.ckpt'):
+        from parseq_tpu_torch.utils.checkpoint import load_checkpoint
+
+        sd, _, meta = load_checkpoint(path)
+        model_cfg = dict(meta.get('model_config') or {})
+        model_cfg.update(kwargs)
+        name = meta.get('name') or model_cfg.get('name') or 'parseq'
+        return _bundle(name, model_cfg, dtype=dtype, device=device, state_dict=sd)
     if not path.endswith('.pt'):
         raise NotImplementedError(
-            f'{path}: only reference PyTorch .pt files load in the port; native msgpack '
-            '.ckpt loading is queued in ROADMAP.md')
+            f'{path}: the port loads its own .ckpt checkpoints and reference PyTorch .pt '
+            'files; the JAX package\'s msgpack checkpoints are queued in ROADMAP.md')
     obj = torch.load(path, map_location='cpu', weights_only=True)
     if isinstance(obj, dict) and 'state_dict' in obj:
         obj = obj['state_dict']
