@@ -7,15 +7,25 @@ Drives the port's main paths once, at full width and depth (random weights
 from a seed), in phases, each printing its result:
 
   1. environment: versions, nvcc, optional modules, card name and power limit;
-  2. build: kernels B1 (csrc/ar_decode.cu), B2 (csrc/attention.cu) and B4
-     (csrc/flash_bwd.cu) with nvcc for sm_90a, all compiles started together;
+  2. build: kernels B1 (csrc/ar_decode.cu), B2 and B3 (csrc/attention.cu),
+     B4 (csrc/flash_bwd.cu) and B5 (csrc/encoder_blocks.cu) with nvcc for
+     sm_90a, all compiles started together;
   3. kernel vs plain: B1 (fused AR decode) against its plain PyTorch
      version, teacher-forced on the kernel's picks, at PARSeq-S's M = 128
      and at patch16-224's M = 196; B2 (fused no-split attention) at
      ViTSTR's (L, h, D) = (197, 6, 384), patch16-224's (196, 6, 384) and
      ABINet's (256, 8, 512); all at B = 1, 7, 256; B4 (attention backward)
      at PARSeq-S training's (B, h, L, dh) = (48, 6, 128, 64) and
-     (384, 6, 128, 64), in bf16 and f32;
+     (384, 6, 128, 64), in bf16 and f32; B3 (head-split attention) at
+     (BH, L, dh) = (6B, 128, 64) and (6B, 197, 64), B = 1, 7, 256, forward
+     and gradients through its autograd Function against autograd of its
+     plain version (a wiring check: both backwards are that autograd); B2's
+     gradients likewise under autograd at ViTSTR's (197, 6, 384); B5 (all
+     encoder blocks) at PARSeq-S's full geometry, depth 12, B = 1, 7, 256
+     (and depth 1), on weights where attention decides the output, its
+     difference held relative to what the blocks add to their input, its
+     launch count set to 0 before and risen after, and against the port's
+     eager blocks as information;
   4. main paths (inference): hub.parseq(), hub.vitstr(),
      hub.parseq_patch16_224() and hub.abinet() on cuda in bf16 read batches
      of 1, 7 and 256 NHWC images; each model's kernel launch counts are set
@@ -30,9 +40,15 @@ from a seed), in phases, each printing its result:
      plain autograd (plain_backward()); step time both ways, peak memory,
      one profiled step (device busy time, B4's share, the top kernels), and
      the step at 1, 2 and 4 microbatches;
-  6. times (CUDA events, median of 20 after warm-up; B2 and B4 per call of
-     10 back-to-back calls queued behind a GPU spin, i.e. device time): each
-     kernel vs its plain version and one
+  6. main paths of this slice: the encoder-kernel bench
+     (experiments/torch_encoder_kernel_bench.py, B = 256, depth 12, bf16:
+     eager blocks, nn.TransformerEncoder and B5, timed) with B5's launch
+     count set to 0 just before and read just after; B3's differentiable op
+     forward and backward at (1536, 128, 64) with its count set to 0 and
+     read likewise;
+  7. times (CUDA events, median of 20 after warm-up; B2, B3 and B4 per call
+     of 10 back-to-back calls queued behind a GPU spin, i.e. device time):
+     each kernel vs its plain version and one
      PyTorch library call computing the same function where there is one,
      beside the kernel's bound; each model's forward in images/s.
 
@@ -50,7 +66,6 @@ import json
 import math
 import shutil
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -64,9 +79,7 @@ import torch.nn.functional as F
 SEED = 0
 BATCHES = (1, 7, 256)
 TIMED_BATCH = 256
-TIMED_RUNS = 20
-BACK_TO_BACK = 10  # calls per event pair when timing B2 and B4
-SPIN_CYCLES = 50_000_000  # ~25 ms of GPU clock: longer than the host takes to enqueue them
+BACK_TO_BACK = 10  # calls per event pair when timing B2, B3 and B4
 # B1 vs plain: the same f32/bf16 roundings, f32 sums in another order.
 KERNEL_ATOL = 1e-2
 # Greedy picks must agree wherever the top-2 margin exceeds bf16 noise.
@@ -93,6 +106,15 @@ MAIN_MARGIN = 0.1
 # taken in another order; f32 outputs differ only by the order of the sums.
 B4_RTOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-5}
 B4_SHAPES = ((48, 6, 128, 64), (384, 6, 128, 64))  # one microbatch, the whole batch
+# B3 at PARSeq-S's and ViTSTR's encoder lengths, 6 heads of 64 per image.
+B3_LENGTHS = (128, 197)
+# B3 and B2 gradients, a wiring check: the backward is autograd of the plain
+# version in both routes, from the same q, k, v, so this shows that the
+# autograd Function carries the gradients through, not that they are right
+# (tests/test_torch_fused_attention.py holds them against JAX's custom VJPs
+# on the CPU); relative to the largest reference value.
+GRAD_EQUAL_RTOL = 2.0 ** -6
+B5_HEADS, B5_DEPTH = 6, 12
 # One training step's gradients with B4 vs plain autograd, per parameter,
 # relative to its largest plain gradient: both run the bf16 model; plain
 # autograd rounds dP and the products with P to bf16 where B4 keeps f32, and
@@ -109,14 +131,11 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
 
+START = time.perf_counter()
+
+
 def phase(name):
-    print(f'== {name}', flush=True)
-
-
-def card_line():
-    out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+    print(f'== {name} (at {time.perf_counter() - START:.1f} s)', flush=True)
 
 
 def importable(name):
@@ -125,32 +144,6 @@ def importable(name):
     except ImportError:
         return False
     return True
-
-
-def cuda_median_ms(fn, runs=TIMED_RUNS, warmup=3, calls=1):
-    """Median over `runs` of the time per call between two CUDA events.
-
-    calls = 1 (the long model forwards and B1): one call per event pair, the
-    wrapper's host work included. calls > 1 (B2, B4 and their plain and
-    library counterparts): the card first spins for ~25 ms
-    (torch.cuda._sleep) while the host enqueues `calls` back-to-back calls
-    behind it, so the events time the device work alone."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        if calls > 1:
-            torch.cuda._sleep(SPIN_CYCLES)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
 
 
 def compare(got, want, atol=KERNEL_ATOL, margin=KERNEL_MARGIN, what='kernel'):
@@ -214,6 +207,20 @@ def b4_bound(B, h, L, dh, elt=2):
                                              else {'f32_flops': flops}))
 
 
+def b3_bound(BH, L, dh):
+    """B2's bound with one head of dh per batch row."""
+    return b2_bound(BH, L, 1, dh)
+
+
+def b5_bound(B, L, D, F, depth):
+    """x read once and out written once (bf16), every layer's weights (bf16)
+    and LayerNorm parameters (f32) read once; per layer the four products
+    and the attention's QK^T and PV in bf16."""
+    weights = 2 * (3 * D * D + D * D + 2 * D * F + 3 * D + D + F + D) + 4 * 4 * D
+    bf16 = 2 * B * L * D * (3 * D + D + 2 * F) + 4 * B * L * L * D
+    return bound(2 * B * L * D * 2 + depth * weights, bf16_flops=depth * bf16)
+
+
 def b4_case(B, h, L, dh, gen, dtype):
     """Operands of B4 as views of one packed projection, dO, and output views
     of one packed gradient, as the training path gives them."""
@@ -224,6 +231,24 @@ def b4_case(B, h, L, dh, gen, dtype):
     grad = torch.empty_like(qkv)
     outs = [heads(grad[..., i * D:(i + 1) * D], h) for i in range(3)]
     return parts, do, outs
+
+
+def grad_check(what, got, want, leaves, grad):
+    """Wiring check of a kernel's autograd Function: gradients of `got`
+    (through the Function) and of `want` (its plain version) for the same
+    cotangent; both are autograd of the plain version, so this raises when
+    the Function drops or misroutes a gradient (more than GRAD_EQUAL_RTOL of
+    the plain gradient's largest value). Returns the max abs differences."""
+    errs = []
+    for a, b in zip(torch.autograd.grad(got, leaves, grad),
+                    torch.autograd.grad(want, leaves, grad)):
+        err = float((a.float() - b.float()).abs().max())
+        limit = GRAD_EQUAL_RTOL * float(b.float().abs().max())
+        if not (torch.isfinite(a.float()).all() and err <= limit):
+            raise AssertionError(f'{what} gradients disagree with plain autograd: '
+                                 f'max_abs_err={err} (limit {limit})')
+        errs.append(err)
+    return errs
 
 
 def render_word(text):
@@ -255,7 +280,10 @@ def main():
     from parseq_tpu_torch.kernels.build import find_nvcc
     from parseq_tpu_torch.models.abinet import ABINet
     from parseq_tpu_torch.models.parseq import PARSeq, PARSeqConfig
-    from parseq_tpu_torch.ops import ar_kernel, attention, flash_bwd
+    from parseq_tpu_torch.ops import ar_kernel, attention, encoder_kernel, flash_bwd
+
+    from experiments import torch_encoder_kernel_bench as enc_bench
+    from experiments.torch_encoder_kernel_bench import card_line, cuda_median_ms
 
     dev = torch.device('cuda')
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -269,16 +297,16 @@ def main():
     print(f'card: {card}; devices {torch.cuda.device_count()}; '
           f'SMs {torch.cuda.get_device_properties(dev).multi_processor_count}')
 
-    phase('2 build (B1, B2 and B4 in parallel)')
+    phase('2 build (B1, B2 and B3, B4, B5 in parallel)')
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        libs = list(pool.map(lambda build: build(),
-                             (ar_kernel.library, attention.library, flash_bwd.library)))
+    with ThreadPoolExecutor(4) as pool:
+        libs = list(pool.map(lambda build: build(), (ar_kernel.library, attention.library,
+                                                     flash_bwd.library, encoder_kernel.library)))
     print(f'built {", ".join(lib._name for lib in libs)} in {time.perf_counter() - t0:.1f} s')
 
     phase('3 kernel vs plain')
     rng = np.random.default_rng(SEED)
-    b1_err = b2_err = b4_err = 0.0
+    b1_err = b2_err = b3_err = b4_err = b5_err = 0.0
     memories = {}
     b1_models = {}
     with torch.inference_mode():
@@ -348,6 +376,66 @@ def main():
                       f'strided in packed (B, L, 3D); max_abs_err dq/dk/dv '
                       f'{"/".join(f"{e:.3e}" for e in errs)} ok')
 
+    for L in B3_LENGTHS:
+        for B in BATCHES:
+            q, k, v, g = (torch.randn(6 * B, L, 64, generator=gen, device=dev)
+                          .to(torch.bfloat16).requires_grad_() for _ in range(4))
+            got = attention.fused_attention(q, k, v, 0.125)
+            torch.cuda.synchronize()
+            want = attention.fused_attention_reference(q, k, v, 0.125)
+            err = float((got - want).detach().float().abs().max())
+            if not (got.shape == (6 * B, L, 64) and torch.isfinite(got.detach().float()).all()
+                    and err <= ATTENTION_ATOL):
+                raise AssertionError(f'B3 (BH, L, dh)={(6 * B, L, 64)} disagrees with its plain '
+                                     f'version: max_abs_err={err} (limit {ATTENTION_ATOL})')
+            b3_err = max(b3_err, err)
+            grad_errs = grad_check(f'B3 (BH, L, dh)={(6 * B, L, 64)}', got, want, (q, k, v), g)
+            print(f'B3 (BH, L, dh)={(6 * B, L, 64)}: forward max_abs_err={err:.3e}, gradients '
+                  f'dq/dk/dv max_abs_err {"/".join(f"{e:.3e}" for e in grad_errs)} ok')
+    qkv = torch.randn(7, 197, 3 * 384, generator=gen, device=dev).to(torch.bfloat16)
+    qkv.requires_grad_()
+    g = torch.randn(7, 197, 384, generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v = qkv[..., :384], qkv[..., 384:768], qkv[..., 768:]
+    before = attention.launches
+    got = attention.fused_attention_nosplit(q, k, v, 6, 0.125)
+    if attention.launches != before + 1:
+        raise AssertionError('B2 under autograd did not launch its kernel')
+    (err,) = grad_check('B2 (B, L, h, D)=(7, 197, 6, 384)', got,
+                        attention.fused_attention_nosplit_reference(q, k, v, 6, 0.125), (qkv,), g)
+    print(f'B2 under autograd (B, L, h, D)=(7, 197, 6, 384), q, k, v views of a packed leaf: '
+          f'kernel forward, gradient max_abs_err {err:.3e} ok')
+
+    blocks = enc_bench.make_blocks(B5_DEPTH, SEED).to(dev)
+    b5_ops = {depth: encoder_kernel.stack_block_params(blocks[:depth]) for depth in (1, B5_DEPTH)}
+    with torch.inference_mode():
+        for depth, B in ((1, 7), *((B5_DEPTH, B) for B in BATCHES)):
+            x = torch.randn(B, enc_bench.L, enc_bench.D, generator=gen, device=dev).to(
+                torch.bfloat16)
+            encoder_kernel.launches = 0
+            got = encoder_kernel.fused_encoder_blocks(b5_ops[depth], x, num_heads=B5_HEADS)
+            torch.cuda.synchronize()
+            if encoder_kernel.launches != 1:
+                raise AssertionError(f'B5 launched {encoder_kernel.launches} times, expected 1')
+            want = encoder_kernel.fused_encoder_blocks_reference(b5_ops[depth], x, B5_HEADS)
+            err = float((got.float() - want.float()).abs().max())
+            rel_max, rel_mean = enc_bench.contribution_errors(got, want, x)
+            limit_max, limit_mean = enc_bench.B5_LIMITS[depth]
+            if not (got.shape == x.shape and torch.isfinite(got.float()).all()
+                    and rel_max <= limit_max and rel_mean <= limit_mean):
+                raise AssertionError(f'B5 depth {depth} B={B} disagrees with its plain version: '
+                                     f'|diff| relative to what the blocks add: max {rel_max} '
+                                     f'(limit {limit_max}), mean {rel_mean} (limit {limit_mean})')
+            if depth == B5_DEPTH:
+                b5_err = max(b5_err, err)
+            msg = (f'B5 (L, D, heads, MLP)=(128, 384, 6, 1536) depth {depth} B={B}: launches 1, '
+                   f'max_abs_err={err:.3e}; |diff| relative to what the blocks add (max '
+                   f'{float((want.float() - x.float()).abs().max()):.3g}): max {rel_max:.3e} '
+                   f'(limit {limit_max:.3g}), mean {rel_mean:.3e} (limit {limit_mean:.3g})')
+            if depth == B5_DEPTH and B == 7:  # information: eager blocks use the tanh GELU
+                eager = enc_bench.eager(blocks, x).float()
+                msg += f'; vs the eager blocks {float((got.float() - eager).abs().max()):.3e}'
+            print(msg + ' ok')
+
     phase('4 main paths on cuda, bf16 (inference)')
     bundles = {
         'parseq': hub.parseq(seed=SEED),
@@ -355,7 +443,7 @@ def main():
         'parseq-patch16-224': hub.parseq_patch16_224(seed=SEED),
         'abinet': hub.abinet(seed=SEED),
     }
-    main_launches = {'B1': 0, 'B2': 0, 'B4': 0}
+    main_launches = {'B1': 0, 'B2': 0, 'B3': 0, 'B4': 0, 'B5': 0}
     images = {}
     for name, bundle in bundles.items():
         module = bundle.module
@@ -410,7 +498,28 @@ def main():
     phase(f'5 main path on cuda: PARSeq-S training through cli.train [{card}]')
     train_info = train_phase(dev, card, main_launches)
 
-    phase(f'6 times [{card}]')
+    phase(f'6 main paths on cuda: the encoder-kernel bench (B5) and B3\'s op [{card}]')
+    encoder_kernel.launches = 0
+    bench = enc_bench.main(['--batch', str(TIMED_BATCH), '--depth', str(B5_DEPTH)])
+    main_launches['B5'] = encoder_kernel.launches
+    if main_launches['B5'] < 1:
+        raise AssertionError('the encoder-kernel bench did not launch kernel B5')
+    print(f'encoder-kernel bench: B5 launches {main_launches["B5"]}')
+    q, k, v, g = (torch.randn(6 * TIMED_BATCH, 128, 64, generator=gen, device=dev)
+                  .to(torch.bfloat16).requires_grad_() for _ in range(4))
+    attention.split_launches = 0
+    o = attention.fused_attention(q, k, v, 0.125)
+    grads = torch.autograd.grad(o, (q, k, v), g)
+    torch.cuda.synchronize()
+    main_launches['B3'] = attention.split_launches
+    if main_launches['B3'] < 1 or not all(torch.isfinite(t.float()).all() for t in (o, *grads)):
+        raise AssertionError(f'B3 op: launches {main_launches["B3"]}, finite outputs and '
+                             f'gradients required')
+    print(f'B3 fused_attention (BH, L, dh)=(1536, 128, 64) forward and backward: launches '
+          f'{main_launches["B3"]}, outputs and gradients finite')
+    del q, k, v, g, o, grads
+
+    phase(f'7 times [{card}]')
     timed = {}
     with torch.inference_mode():
         for name in ('PARSeq-S', 'PARSeq-S patch16-224'):
@@ -433,6 +542,28 @@ def main():
                   f'kernel {timed["B2", L][0]:.4f} ms, plain {timed["B2", L][1]:.4f} ms, '
                   f'library (scaled_dot_product_attention) {timed["B2", L][2]:.4f} ms, '
                   f'bound {b2_bound(TIMED_BATCH, L, h, D)[0]:.4f} ms')
+        for L in B3_LENGTHS:
+            q, k, v = (torch.randn(6 * TIMED_BATCH, L, 64, generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(3))
+            q4, k4, v4 = q[:, None], k[:, None], v[:, None]
+            timed['B3', L] = tuple(cuda_median_ms(fn, calls=BACK_TO_BACK) for fn in (
+                lambda: attention.fused_attention(q, k, v, 0.125),
+                lambda: attention.fused_attention_reference(q, k, v, 0.125),
+                lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=0.125)))
+            print(f'B3 fused_attention (BH, L, dh)={(6 * TIMED_BATCH, L, 64)} [{card}]: '
+                  f'kernel {timed["B3", L][0]:.4f} ms, plain {timed["B3", L][1]:.4f} ms, '
+                  f'library (scaled_dot_product_attention on (BH, 1, L, dh)) '
+                  f'{timed["B3", L][2]:.4f} ms, bound {b3_bound(6 * TIMED_BATCH, L, 64)[0]:.4f} ms')
+        x = torch.randn(TIMED_BATCH, enc_bench.L, enc_bench.D, generator=gen, device=dev).to(
+            torch.bfloat16)
+        op = b5_ops[B5_DEPTH]
+        b5_plain_ms = cuda_median_ms(
+            lambda: encoder_kernel.fused_encoder_blocks_reference(op, x, B5_HEADS))
+        b5_ms = b5_bound(TIMED_BATCH, enc_bench.L, enc_bench.D, enc_bench.MLP, B5_DEPTH)
+        print(f'B5 fused_encoder_blocks B={TIMED_BATCH} depth {B5_DEPTH} [{card}]: kernel '
+              f'{bench["b5_ms"]:.4f} ms, plain {b5_plain_ms:.4f} ms, library '
+              f'(nn.TransformerEncoder) {bench["library_ms"]:.4f} ms, eager blocks '
+              f'{bench["eager_ms"]:.4f} ms, bound {b5_ms[0]:.4f} ms ({b5_ms[1]})')
     for B, h, L, dh in B4_SHAPES:
         parts, do, outs = b4_case(B, h, L, dh, gen, torch.bfloat16)
         with torch.inference_mode():
@@ -463,6 +594,7 @@ def main():
 
     b1_ms, b2_ms, b4_ms = b1_bound(TIMED_BATCH, 128, PARSeqConfig()), b2_bound(
         TIMED_BATCH, 197, 6, 384), b4_bound(*B4_SHAPES[0])
+    b3_ms = b3_bound(6 * TIMED_BATCH, 128, 64)
     print(json.dumps({'kernels': [
         {'name': 'ar_decode_fused', 'route': 'cuda',
          'source': 'parseq_tpu_torch/csrc/ar_decode.cu',
@@ -486,6 +618,22 @@ def main():
          'bound_ms': b4_ms[0], 'bound_us': b4_ms[0] * 1e3, 'bound_by': b4_ms[1],
          'library_ms': timed['B4', 48][2],
          'at': '(B, h, L, dh)=(48, 6, 128, 64) bf16 (PARSeq-S training microbatch)'},
+        {'name': 'fused_attention', 'route': 'cuda',
+         'source': 'parseq_tpu_torch/csrc/attention.cu',
+         'replaces': 'parseq_tpu/ops/attention.py:82',
+         'launches': main_launches['B3'], 'max_abs_err': b3_err,
+         'ms': timed['B3', 128][0], 'plain_ms': timed['B3', 128][1],
+         'bound_ms': b3_ms[0], 'bound_us': b3_ms[0] * 1e3, 'bound_by': b3_ms[1],
+         'library_ms': timed['B3', 128][2], 'at': f'(BH, L, dh)=({6 * TIMED_BATCH}, 128, 64) bf16'},
+        {'name': 'fused_encoder_blocks', 'route': 'cuda',
+         'source': 'parseq_tpu_torch/csrc/encoder_blocks.cu',
+         'replaces': 'parseq_tpu/ops/encoder_kernel.py:170',
+         'launches': main_launches['B5'], 'max_abs_err': b5_err,
+         'ms': bench['b5_ms'], 'plain_ms': b5_plain_ms,
+         'bound_ms': b5_ms[0], 'bound_us': b5_ms[0] * 1e3, 'bound_by': b5_ms[1],
+         'library_ms': bench['library_ms'],
+         'at': f'B={TIMED_BATCH} (L, D, heads, MLP)=(128, 384, 6, 1536) depth {B5_DEPTH} bf16 '
+               f'(PARSeq-S encoder)'},
     ]}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

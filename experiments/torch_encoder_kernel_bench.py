@@ -1,0 +1,207 @@
+#!/usr/bin/env python
+"""Encoder microbench of the PyTorch port: eager ViT blocks, PyTorch's
+nn.TransformerEncoder and kernel B5 (the port's counterpart of
+experiments/encoder_kernel_bench.py).
+
+    python experiments/torch_encoder_kernel_bench.py [--batch 256] [--depth 12] [--device cuda]
+
+PARSeq-S geometry: L = 128 tokens, D = 384, 6 heads, MLP 1536, `--depth`
+blocks, bf16, random weights from seed 0 (`make_blocks`: q/k/v weights
+large enough that attention scores spread by about SCORE_STD) and an N(0,
+1) input from seed 1, both drawn with numpy. The three versions run the
+same weights on the same input:
+
+  eager    a loop of the port's `models.vit.Block`s (the JAX script's scan);
+  library  nn.TransformerEncoder of TransformerEncoderLayer(384, 6, 1536,
+           dropout=0, activation='gelu', batch_first=True, norm_first=True)
+           in eval and bf16: PyTorch's one call for the same function, on
+           its fused fast path;
+  B5       ops.encoder_kernel.fused_encoder_blocks, one kernel launch.
+
+On cuda (the default; it raises without a card) each is timed with CUDA
+events around one call, median of 20 after warm-up, and printed as
+ms/batch, TF/s (the JAX script's FLOP count, 2 B L D (4D + 2L + 2F) per
+layer) and img/s, with the card's name and power limit. `--device cpu`
+runs the plain versions (the eager loop and B5's plain version) once and
+prints how far they agree; it times nothing. The last line is one JSON
+object with the results.
+"""
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), '..'))
+
+import numpy as np
+import torch
+from torch import nn
+
+from parseq_tpu_torch.models import vit
+from parseq_tpu_torch.ops import encoder_kernel
+
+L, D, HEADS, MLP = 128, 384, 6, 1536
+SEED = 0
+RUNS = 20
+SPIN_CYCLES = 50_000_000  # ~25 ms of GPU clock: longer than the host takes to enqueue a timed run
+# Standard deviation of the attention scores that make_blocks aims at: with
+# LayerNorm outputs of about N(0, 1), q/k/v weights of variance SCORE_STD / D
+# give scores (scaled by 1/sqrt(dh)) of standard deviation about SCORE_STD,
+# so the softmax is far from uniform and each head's keys decide its output.
+SCORE_STD = 2.5
+# Limits of contribution_errors (max, mean) for B5 against its plain version
+# on make_blocks weights, at depth 1 and at any depth up to 12. Both take the
+# same rounding points with the f32 sums in another order: a value may round
+# to the neighbouring bf16 step, and such flips compound over the layers.
+# A head reading another head's keys, uniform attention or 8 keys masked
+# exceed the mean limit (tests/test_torch_encoder_kernel.py plants them).
+B5_LIMITS = {1: (2.0 ** -4, 2.0 ** -8), 12: (2.0 ** -3, 2.0 ** -4)}
+
+
+def make_blocks(depth, seed, dim=D, heads=HEADS, mlp=MLP):
+    """`depth` pre-LN blocks (the port's Blocks, f32 parameters) drawn with
+    numpy from `seed`, the same on every host: LayerNorm scales 1 + N(0,
+    0.1^2), LayerNorm biases N(0, 0.1^2), q/k/v weights N(0, SCORE_STD /
+    dim), the other weights and all biases N(0, 0.02^2)."""
+    rng = np.random.default_rng(seed)
+    cfg = vit.ViTConfig(embed_dim=dim, depth=depth, num_heads=heads, mlp_ratio=mlp / dim)
+    blocks = nn.ModuleList(vit.Block(cfg) for _ in range(depth))
+    with torch.no_grad():
+        for name, p in blocks.named_parameters():
+            noise = torch.from_numpy(rng.standard_normal(tuple(p.shape), dtype=np.float32))
+            if '.norm' in name:
+                p.copy_(float(name.endswith('weight')) + 0.1 * noise)
+            elif name.endswith('qkv.weight'):
+                p.copy_((SCORE_STD / dim) ** 0.5 * noise)
+            else:
+                p.copy_(0.02 * noise)
+    return blocks
+
+
+def contribution_errors(got, want, x):
+    """(max, mean) of |got - want| over the (max, mean) of |want - x|: how far
+    an encoder output lies from its plain version, relative to what the
+    blocks add to their input x (the residual stream would hide it)."""
+    diff = (got.float() - want.float()).abs()
+    added = (want.float() - x.float()).abs()
+    return float(diff.max() / added.max()), float(diff.mean() / added.mean())
+
+
+def library_encoder(blocks):
+    """nn.TransformerEncoder carrying the blocks' weights (pre-LN, exact GELU)."""
+    layer = nn.TransformerEncoderLayer(D, HEADS, MLP, dropout=0.0, activation='gelu',
+                                       batch_first=True, norm_first=True)
+    enc = nn.TransformerEncoder(layer, len(blocks), enable_nested_tensor=False)
+    with torch.no_grad():
+        for lib, blk in zip(enc.layers, blocks):
+            lib.self_attn.in_proj_weight.copy_(blk.attn.qkv.weight)
+            lib.self_attn.in_proj_bias.copy_(blk.attn.qkv.bias)
+            for dst, src in ((lib.self_attn.out_proj, blk.attn.proj), (lib.linear1, blk.mlp.fc1),
+                             (lib.linear2, blk.mlp.fc2), (lib.norm1, blk.norm1),
+                             (lib.norm2, blk.norm2)):
+                dst.weight.copy_(src.weight)
+                dst.bias.copy_(src.bias)
+    return enc.eval()
+
+
+def eager(blocks, x):
+    for blk in blocks:
+        x = blk(x)
+    return x
+
+
+def cuda_median_ms(fn, runs=RUNS, warmup=3, calls=1):
+    """Median over `runs` of the time per call between two CUDA events.
+
+    calls = 1: one call per event pair, the wrapper's host work included.
+    calls > 1: the card first spins for ~25 ms (torch.cuda._sleep) while the
+    host enqueues `calls` back-to-back calls behind it, so the events time
+    the device work alone."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if calls > 1:
+            torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def card_line():
+    out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--batch', type=int, default=256)
+    ap.add_argument('--depth', type=int, default=12)
+    ap.add_argument('--device', default='cuda', choices=('cuda', 'cpu'))
+    args = ap.parse_args(argv)
+    if args.device == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('torch_encoder_kernel_bench: no CUDA device (pass --device cpu for '
+                           'the plain versions)')
+    dev = torch.device(args.device)
+    B, depth = args.batch, args.depth
+    blocks = make_blocks(depth, SEED)
+    x = torch.from_numpy(
+        np.random.default_rng(SEED + 1).standard_normal((B, L, D), dtype=np.float32))
+    flops = 2 * B * L * D * (4 * D + 2 * L + 2 * MLP) * depth
+    result = {'batch': B, 'depth': depth, 'L': L, 'D': D, 'heads': HEADS, 'mlp': MLP,
+              'device': args.device, 'flops': flops}
+
+    with torch.inference_mode():
+        if args.device == 'cpu':
+            x32 = x.to(dev)
+            want = eager(blocks, x32)
+            got = encoder_kernel.fused_encoder_blocks(
+                encoder_kernel.stack_block_params(blocks, torch.float32), x32, num_heads=HEADS)
+            result['max_abs_diff_f32'] = float((got - want).abs().max())
+            print(f'B={B} depth={depth} f32 on cpu: B5 plain version vs eager blocks, max abs '
+                  f'difference {result["max_abs_diff_f32"]:.3e}; no times (no card)')
+            print(json.dumps(result))
+            return result
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card = card_line()
+        blocks = blocks.to(dev)
+        lib = library_encoder(blocks).to(dev, torch.bfloat16)
+        op = encoder_kernel.stack_block_params(blocks)
+        xb = x.to(dev, torch.bfloat16)
+        versions = {
+            'eager': lambda: eager(blocks, xb),
+            'library': lambda: lib(xb),
+            'b5': lambda: encoder_kernel.fused_encoder_blocks(op, xb, num_heads=HEADS),
+        }
+        outs = {name: fn().float() for name, fn in versions.items()}
+        for name in ('library', 'b5'):
+            result[f'max_abs_diff_{name}_vs_eager'] = float((outs[name] - outs['eager']).abs().max())
+        del outs
+        for name, fn in versions.items():
+            ms = cuda_median_ms(fn)
+            result[f'{name}_ms'] = ms
+            print(f'{name:8s} B={B} depth={depth} bf16 [{card}]: {ms:8.4f} ms/batch  '
+                  f'{flops / ms / 1e9:6.1f} TF/s  {B / ms * 1e3:8.0f} img/s', flush=True)
+    result['card'] = card
+    print(f'B5 vs eager {result["max_abs_diff_b5_vs_eager"]:.3e}, library vs eager '
+          f'{result["max_abs_diff_library_vs_eager"]:.3e} (max abs, bf16; eager uses the tanh '
+          f'GELU at bf16, B5 and the library the exact one)')
+    print(card)
+    print(json.dumps(result))
+    return result
+
+
+if __name__ == '__main__':
+    main()

@@ -1,5 +1,6 @@
 // Unmasked multi-head self-attention on the unsplit (B, L, D) layout, for
-// Hopper (sm_90a): kernel B2 of the port.
+// Hopper (sm_90a): kernel B2 of the port; and, through a second entry, the
+// same computation on the head-split (BH, L, dh) layout: kernel B3.
 //
 // Replaces the Pallas TPU kernel
 // parseq_tpu/ops/attention.py:_pallas_attention_nosplit (wrapper
@@ -40,6 +41,14 @@
 //     copies. o is (B, L, D) contiguous.
 //   * Ragged L (197, 196) and the last query tile are masked.
 // Not done yet: TMA/cp.async staging, wgmma, sharing K/V across query tiles.
+//
+// Kernel B3 replaces parseq_tpu/ops/attention.py:_pallas_attention (wrapper
+// fused_attention): q, k, v are (BH, L, dh) with dh = 64, one head per batch
+// row. Its entry, parseq_attention_split, runs the kernel above with one
+// 64-column head per row (H = 1, D = 64), cutting BH into launches of at
+// most 65535 rows (grid z). The TPU kernel's heads_per_block grouping is a
+// VMEM blocking choice and is not carried over. Its bound at (1536, 128,
+// 64) bf16: q, k, v in and o out, 100.7 MB, ~30 us at 3.35 TB/s.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -299,6 +308,26 @@ int parseq_attention_nosplit(const void* q, const void* k, const void* v, void* 
   const dim3 grid((L + kQT - 1) / kQT, H, B);
   attention_kernel<<<grid, kThreads, t.bytes, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
+}
+
+// Returns a cudaError_t code (0 = launched). Head-split attention (kernel
+// B3): q, k, v are (BH, L, 64) bf16 with unit channel stride and the given
+// batch-head / row strides (elements, multiples of 8, 16-byte aligned
+// pointers); o: (BH, L, 64) bf16 contiguous, allocated by the caller.
+int parseq_attention_split(const void* q, const void* k, const void* v, void* o,
+                           long long q_bs, long long q_rs, long long k_bs, long long k_rs,
+                           long long v_bs, long long v_rs, long long BH, int L, float scale,
+                           void* stream) {
+  if (BH < 1) return (int)cudaErrorInvalidValue;
+  for (long long b0 = 0; b0 < BH; b0 += 65535) {
+    const int n = (int)(BH - b0 < 65535 ? BH - b0 : 65535);
+    const int rc = parseq_attention_nosplit(
+        static_cast<const bf16*>(q) + b0 * q_bs, static_cast<const bf16*>(k) + b0 * k_bs,
+        static_cast<const bf16*>(v) + b0 * v_bs, static_cast<bf16*>(o) + b0 * L * kDh, q_bs, q_rs,
+        k_bs, k_rs, v_bs, v_rs, n, L, kDh, 1, scale, stream);
+    if (rc != 0) return rc;
+  }
+  return 0;
 }
 
 int parseq_attention_max_len() { return kMaxL; }

@@ -1,0 +1,511 @@
+// All pre-LN ViT blocks of an encoder in one launch, for Hopper (sm_90a):
+// kernel B5 of the port.
+//
+// Replaces the Pallas TPU kernel
+// parseq_tpu/ops/encoder_kernel.py:_encoder_kernel (wrapper
+// fused_encoder_blocks), whose one caller in the JAX package is the encoder
+// microbench experiments/encoder_kernel_bench.py (PARSeq-S: L = 128 tokens,
+// D = 384, 6 heads, MLP 1536, 12 layers, batch 256, bf16). For every image
+// and every layer, with that kernel's rounding points:
+//   h   = bf16(LN1_f32(x))
+//   qkv = bf16(bf16(h Wqkv^T) + bqkv)                        f32 sums
+//   per head: s = f32(q k^T) * scale, p = bf16(softmax_f32(s)) (normalised
+//             before the cast), o = bf16(sum_j p_j v_j)      f32 sums
+//   x1  = bf16(x + bf16(bf16(o Wo^T) + bo))
+//   h2  = bf16(LN2_f32(x1))
+//   hid = bf16(gelu_erf(bf16(bf16(h2 W1^T) + b1)))           GELU in f32
+//   out = bf16(x1 + bf16(bf16(hid W2^T) + b2))
+//
+// What bounds it on this card: at the PARSeq-S shape above it does 1.469
+// TFLOP (115.96 GFLOP of matrix products and 6.44 GFLOP of attention per
+// layer), 1.49 ms at the bf16 tensor-core peak, and must move only ~93 MB
+// (the activations in and out and 42.5 MB of weights), 28 us at 3.35 TB/s:
+// it is bound by operations.
+//
+// What the design does about it (a first, simple version):
+//   * One block of 8 warps per image loops over all layers, so the whole
+//     encoder is one launch. The residual stream lives in the output tensor
+//     (96 KB per image, 25 MB at B = 256) and the LayerNorm output h and the
+//     packed q|k|v projection, later the attention output (over the q
+//     columns) and the MLP hidden, in per-image scratch: L2-resident as far
+//     as the 50 MB L2 holds them, since each block rereads what it wrote a
+//     phase earlier. Per-layer weights (3.5 MB) are shared by all blocks
+//     through L2.
+//   * Every product is a 128 x 128 output tile at a time, a 3-stage cp.async
+//     pipeline of 128 x 32 A and W tiles in shared memory, ldmatrix
+//     fragments and mma.sync m16n8k16 (bf16 in, f32 sums); the epilogue
+//     applies the bias, GELU or residual add with the rounding points above.
+//     W is read in torch's (out, in) layout, which is mma's column-major B.
+//   * Attention takes one head at a time on its 64-column slice (the TPU
+//     kernel's head-masked full-width products are a Mosaic workaround; the
+//     sums are the same). K and V^T are staged in shared memory; each warp
+//     keeps its 16 query rows' whole score rows (L <= 128) in registers, so
+//     softmax uses the exact row max and sum, and the normalised bf16
+//     probabilities feed the PV product straight from the score fragments.
+//   * GELU uses erff (the TPU kernel's rational erf is a Mosaic workaround).
+// Shared memory: 60 KB per block, two or three blocks per SM.
+// Not done yet: wgmma, TMA, keeping h or the hidden on chip, L > 128.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxL = 128;    // tokens per image: 8 warps x 16 query rows, one 128-row tile
+constexpr int kMaxD = 512;    // LayerNorm keeps a row in registers (16 values per lane)
+constexpr int kDh = 64;       // head width
+constexpr int kBM = 128;      // product tile rows (all tokens of the image)
+constexpr int kBN = 128;      // product tile columns
+constexpr int kBK = 32;       // product depth per pipeline stage
+constexpr int kStages = 3;
+constexpr int kTS = kBK + 8;  // bf16 row stride of a staged tile: 80 B, ldmatrix conflict-free
+constexpr int kKS = kDh + 8;  // bf16 row stride of staged K
+constexpr int kVS = kMaxL + 8;  // bf16 row stride of staged V^T
+constexpr size_t kGemmSmem = sizeof(bf16) * kStages * 2 * kBM * kTS;      // 61,440 B
+constexpr size_t kAttnSmem = sizeof(bf16) * (kMaxL * kKS + kDh * kVS);    // 35,840 B
+constexpr size_t kSmem = kGemmSmem > kAttnSmem ? kGemmSmem : kAttnSmem;
+
+struct Params {
+  const bf16* x;    // (B, L, D) input
+  bf16* out;        // (B, L, D): the residual stream, updated in place
+  bf16* h;          // (B, L, D) scratch: LayerNorm output
+  bf16* big;        // (B, L, ldb) scratch: q|k|v, then attention out, then MLP hidden
+  const float* ln1_s;
+  const float* ln1_b;
+  const float* ln2_s;
+  const float* ln2_b;   // (depth, D) each
+  const bf16* wqkv;     // (depth, 3D, D)
+  const bf16* bqkv;     // (depth, 3D)
+  const bf16* wo;       // (depth, D, D)
+  const bf16* bo;       // (depth, D)
+  const bf16* w1;       // (depth, F, D)
+  const bf16* b1;       // (depth, F)
+  const bf16* w2;       // (depth, D, F)
+  const bf16* b2;       // (depth, D)
+  int L, D, H, F, depth, ldb;
+  float scale;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy through L2 only; fills zeros when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a (16x16, row-major fragment) * b (16x8, column-major fragment).
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float2 bf16x2_at(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// dst[r] = bf16(LN_f32(src[r]) * s + b) for rows r < L, one warp per row.
+__device__ void layer_norm(const bf16* src, bf16* dst, const float* s, const float* b, int L,
+                           int D) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int pairs = D / 64;  // bf16 pairs per lane
+  for (int r = warp; r < L; r += kWarps) {
+    const __nv_bfloat162* row = reinterpret_cast<const __nv_bfloat162*>(src + (size_t)r * D);
+    float2 v[kMaxD / 64];
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < kMaxD / 64; ++i) {
+      if (i < pairs) {
+        v[i] = __bfloat1622float2(row[lane + 32 * i]);
+        sum += v[i].x + v[i].y;
+      }
+    }
+    const float mean = warp_sum(sum) / D;
+    float sq = 0.f;
+#pragma unroll
+    for (int i = 0; i < kMaxD / 64; ++i) {
+      if (i < pairs) {
+        const float a = v[i].x - mean, c = v[i].y - mean;
+        sq += a * a + c * c;
+      }
+    }
+    const float rstd = rsqrtf(warp_sum(sq) / D + 1e-5f);
+    __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r * D);
+#pragma unroll
+    for (int i = 0; i < kMaxD / 64; ++i) {
+      if (i < pairs) {
+        const int c = 2 * (lane + 32 * i);
+        out[lane + 32 * i] = __floats2bfloat162_rn((v[i].x - mean) * rstd * s[c] + b[c],
+                                                   (v[i].y - mean) * rstd * s[c + 1] + b[c + 1]);
+      }
+    }
+  }
+}
+
+// C = A W^T for the image's rows r < L: A is (L, K) bf16 with row stride lda,
+// W is (N, K) bf16 row-major (torch's (out, in) layout); N % kBN == 0 and
+// K % kBK == 0. Each 128 x 128 tile's f32 sums go to epi(row, col, c0, c1)
+// for the column pair (col, col + 1). 8 warps as 4 (rows) x 2 (columns),
+// 32 x 64 outputs each. Ends with a block barrier: the outputs are visible.
+template <class Epi>
+__device__ void gemm(unsigned char* smem, const bf16* A, int lda, const bf16* W, int N, int K,
+                     int L, Epi epi) {
+  bf16* tiles = reinterpret_cast<bf16*>(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int wm = warp & 3, wn = warp >> 2;
+  const bool active = wm * 32 < L;  // warps whose rows are all past L only stage tiles
+  const int KT = K / kBK;
+  for (int n0 = 0; n0 < N; n0 += kBN) {
+    // Stage k-slice kt of A (rows past L zero) and of W's rows n0..n0+127:
+    // 128 rows x 4 chunks of 16 B each, 2 chunks of each per thread.
+    auto load = [&](int kt) {
+      bf16* sa = tiles + (kt % kStages) * 2 * kBM * kTS;
+      bf16* sw = sa + kBM * kTS;
+      const int k0 = kt * kBK;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int idx = tid + u * kThreads, r = idx >> 2, c = (idx & 3) * 8;
+        cp_async16(sa + r * kTS + c, A + (size_t)(r < L ? r : 0) * lda + k0 + c, r < L);
+        cp_async16(sw + r * kTS + c, W + (size_t)(n0 + r) * K + k0 + c, true);
+      }
+    };
+    float acc[2][8][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
+
+#pragma unroll
+    for (int st = 0; st < kStages - 1; ++st) {
+      if (st < KT) load(st);
+      cp_async_commit();
+    }
+    for (int kt = 0; kt < KT; ++kt) {
+      cp_async_wait<kStages - 2>();  // this thread's copies of slice kt have landed
+      __syncthreads();               // everyone's have, and slice kt-1's slot is free
+      if (kt + kStages - 1 < KT) load(kt + kStages - 1);
+      cp_async_commit();
+      if (active) {
+        const bf16* sa = tiles + (kt % kStages) * 2 * kBM * kTS;
+        const bf16* sw = sa + kBM * kTS;
+#pragma unroll
+        for (int ks = 0; ks < kBK; ks += 16) {
+          uint32_t a[2][4], b[4][4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)  // rows 0-15 x k 0-7, 8-15 x 0-7, 0-15 x 8-15 ...
+            ldmatrix_x4(a[mt], sa + (wm * 32 + mt * 16 + (lane & 15)) * kTS + ks + (lane >> 4) * 8);
+#pragma unroll
+          for (int np = 0; np < 4; ++np)  // n8 tiles 2np, 2np+1: (b0, b1) of each
+            ldmatrix_x4(b[np], sw + (wn * 64 + np * 16 + (lane >> 4) * 8 + (lane & 7)) * kTS + ks +
+                                   ((lane >> 3) & 1) * 8);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt)
+              mma_bf16(acc[mt][nt], a[mt], b[nt >> 1][(nt & 1) * 2], b[nt >> 1][(nt & 1) * 2 + 1]);
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // all warps are done with the slots before the next tile stages into them
+    if (active) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int row = wm * 32 + mt * 16 + g;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int col = n0 + wn * 64 + nt * 8 + 2 * tg;
+          if (row < L) epi(row, col, acc[mt][nt][0], acc[mt][nt][1]);
+          if (row + 8 < L) epi(row + 8, col, acc[mt][nt][2], acc[mt][nt][3]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Self-attention of one image, one head at a time: q, k, v are the column
+// blocks [0, D), [D, 2D), [2D, 3D) of `big` (row stride ldb). Head hd's
+// output overwrites its own q columns: each warp reads its 16 query rows
+// into registers before it writes those rows, and no other warp reads them.
+__device__ void attention(unsigned char* smem, bf16* big, int ldb, int L, int D, int H,
+                          float scale) {
+  bf16* s_k = reinterpret_cast<bf16*>(smem);
+  unsigned short* s_vt = reinterpret_cast<unsigned short*>(smem + sizeof(bf16) * kMaxL * kKS);
+  const bf16* vt = reinterpret_cast<const bf16*>(s_vt);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int Lp = (L + 15) & ~15;  // keys padded to a multiple of 16 with zero rows
+  const int ra = warp * 16 + g, rb = ra + 8;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int hd = 0; hd < H; ++hd) {
+    const bf16* kb = big + D + hd * kDh;
+    const bf16* vb = big + 2 * D + hd * kDh;
+    // Chunk idx -> key j = idx % Lp, channels c*8..c*8+7 with c = idx / Lp:
+    // neighbouring lanes take neighbouring keys, so the 16-bit V^T stores of
+    // a warp hit consecutive words.
+    for (int idx = tid; idx < Lp * 8; idx += kThreads) {
+      const int c = idx / Lp, j = idx - c * Lp;
+      uint4 kv = zero, vv = zero;
+      if (j < L) {
+        kv = *reinterpret_cast<const uint4*>(kb + (size_t)j * ldb + c * 8);
+        vv = *reinterpret_cast<const uint4*>(vb + (size_t)j * ldb + c * 8);
+      }
+      *reinterpret_cast<uint4*>(s_k + j * kKS + c * 8) = kv;
+      const uint32_t w[4] = {vv.x, vv.y, vv.z, vv.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s_vt[(c * 8 + 2 * e) * kVS + j] = (unsigned short)(w[e] & 0xffffu);
+        s_vt[(c * 8 + 2 * e + 1) * kVS + j] = (unsigned short)(w[e] >> 16);
+      }
+    }
+    __syncthreads();
+
+    if (warp * 16 < L) {
+      bf16* qa = big + (size_t)(ra < L ? ra : 0) * ldb + hd * kDh + 2 * tg;
+      bf16* qb = big + (size_t)(rb < L ? rb : 0) * ldb + hd * kDh + 2 * tg;
+      uint32_t qf[4][4];
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const int d = ks * 16;
+        qf[ks][0] = ra < L ? ld32(qa + d) : 0u;
+        qf[ks][1] = rb < L ? ld32(qb + d) : 0u;
+        qf[ks][2] = ra < L ? ld32(qa + d + 8) : 0u;
+        qf[ks][3] = rb < L ? ld32(qb + d + 8) : 0u;
+      }
+      // Scores of rows ra (s[.][0..1]) and rb (s[.][2..3]), keys nt*8 + 2tg + {0, 1}.
+      float s[kMaxL / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < kMaxL / 8; ++nt) {
+        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+        if (nt * 8 < Lp) {
+          const bf16* kr = s_k + (nt * 8 + g) * kKS + 2 * tg;
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) mma_bf16(s[nt], qf[ks], ld32(kr + ks * 16), ld32(kr + ks * 16 + 8));
+        }
+      }
+      float ma = -3.402823466e38f, mb = -3.402823466e38f;
+#pragma unroll
+      for (int nt = 0; nt < kMaxL / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool valid = nt * 8 + 2 * tg + e < L;
+          s[nt][e] = valid ? s[nt][e] * scale : -3.402823466e38f;
+          s[nt][2 + e] = valid ? s[nt][2 + e] * scale : -3.402823466e38f;
+          ma = fmaxf(ma, s[nt][e]);
+          mb = fmaxf(mb, s[nt][2 + e]);
+        }
+      }
+      // The four lanes of a quad hold one row's columns.
+      ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, 1));
+      ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, 2));
+      mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, 1));
+      mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, 2));
+      float suma = 0.f, sumb = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < kMaxL / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool valid = nt * 8 + 2 * tg + e < L;
+          s[nt][e] = valid ? expf(s[nt][e] - ma) : 0.f;
+          s[nt][2 + e] = valid ? expf(s[nt][2 + e] - mb) : 0.f;
+          suma += s[nt][e];
+          sumb += s[nt][2 + e];
+        }
+      }
+      suma += __shfl_xor_sync(0xffffffffu, suma, 1);
+      suma += __shfl_xor_sync(0xffffffffu, suma, 2);
+      sumb += __shfl_xor_sync(0xffffffffu, sumb, 1);
+      sumb += __shfl_xor_sync(0xffffffffu, sumb, 2);
+
+      // O = P V: the score fragments of n8 tiles 2kk and 2kk+1 are the A
+      // fragment of k-step kk.
+      float o[8][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kMaxL / 16; ++kk) {
+        if (kk * 16 < Lp) {
+          const uint32_t pa[4] = {
+              pack_bf16(s[2 * kk][0] / suma, s[2 * kk][1] / suma),
+              pack_bf16(s[2 * kk][2] / sumb, s[2 * kk][3] / sumb),
+              pack_bf16(s[2 * kk + 1][0] / suma, s[2 * kk + 1][1] / suma),
+              pack_bf16(s[2 * kk + 1][2] / sumb, s[2 * kk + 1][3] / sumb)};
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            const bf16* vr = vt + (nt * 8 + g) * kVS + kk * 16 + 2 * tg;
+            mma_bf16(o[nt], pa, ld32(vr), ld32(vr + 8));
+          }
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        if (ra < L)
+          *reinterpret_cast<__nv_bfloat162*>(qa + nt * 8) = __floats2bfloat162_rn(o[nt][0], o[nt][1]);
+        if (rb < L)
+          *reinterpret_cast<__nv_bfloat162*>(qb + nt * 8) = __floats2bfloat162_rn(o[nt][2], o[nt][3]);
+      }
+    }
+    __syncthreads();  // K and V^T of the next head overwrite this one's
+  }
+}
+
+__device__ __forceinline__ float gelu_erf(float v) {
+  return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
+}
+
+__global__ void __launch_bounds__(kThreads, 2) encoder_blocks_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int L = p.L, D = p.D, F = p.F, ldb = p.ldb;
+  const size_t b = blockIdx.x;
+  bf16* x = p.out + b * L * D;
+  bf16* h = p.h + b * L * D;
+  bf16* big = p.big + b * L * ldb;
+  {
+    const uint4* src = reinterpret_cast<const uint4*>(p.x + b * L * D);
+    uint4* dst = reinterpret_cast<uint4*>(x);
+    for (int i = threadIdx.x; i < L * D / 8; i += kThreads) dst[i] = src[i];
+  }
+  __syncthreads();
+
+  for (int l = 0; l < p.depth; ++l) {
+    const bf16* bqkv = p.bqkv + (size_t)l * 3 * D;
+    const bf16* bo = p.bo + (size_t)l * D;
+    const bf16* b1 = p.b1 + (size_t)l * F;
+    const bf16* b2 = p.b2 + (size_t)l * D;
+    // x + bf16(bf16(acc) + bias), in place on the residual stream.
+    auto residual = [&](const bf16* bias) {
+      return [=](int r, int c, float v0, float v1) {
+        const float2 bb = bf16x2_at(bias + c);
+        __nv_bfloat162* px = reinterpret_cast<__nv_bfloat162*>(x + (size_t)r * D + c);
+        const float2 xv = __bfloat1622float2(*px);
+        *px = __floats2bfloat162_rn(xv.x + round_bf16(round_bf16(v0) + bb.x),
+                                    xv.y + round_bf16(round_bf16(v1) + bb.y));
+      };
+    };
+
+    layer_norm(x, h, p.ln1_s + (size_t)l * D, p.ln1_b + (size_t)l * D, L, D);
+    __syncthreads();
+    gemm(smem, h, D, p.wqkv + (size_t)l * 3 * D * D, 3 * D, D, L,
+         [=](int r, int c, float v0, float v1) {
+           const float2 bb = bf16x2_at(bqkv + c);
+           *reinterpret_cast<__nv_bfloat162*>(big + (size_t)r * ldb + c) =
+               __floats2bfloat162_rn(round_bf16(v0) + bb.x, round_bf16(v1) + bb.y);
+         });
+    attention(smem, big, ldb, L, D, p.H, p.scale);
+    gemm(smem, big, ldb, p.wo + (size_t)l * D * D, D, D, L, residual(bo));
+
+    layer_norm(x, h, p.ln2_s + (size_t)l * D, p.ln2_b + (size_t)l * D, L, D);
+    __syncthreads();
+    gemm(smem, h, D, p.w1 + (size_t)l * F * D, F, D, L, [=](int r, int c, float v0, float v1) {
+      const float2 bb = bf16x2_at(b1 + c);
+      *reinterpret_cast<__nv_bfloat162*>(big + (size_t)r * ldb + c) = __floats2bfloat162_rn(
+          gelu_erf(round_bf16(round_bf16(v0) + bb.x)), gelu_erf(round_bf16(round_bf16(v1) + bb.y)));
+    });
+    gemm(smem, big, ldb, p.w2 + (size_t)l * D * F, D, F, L, residual(b2));
+  }
+}
+
+inline bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0; }
+
+}  // namespace
+
+extern "C" {
+
+// Returns a cudaError_t code (0 = launched). All tensors contiguous with
+// 16-byte aligned starts: x, out (B, L, D) bf16; scratch h (B, L, D) and big
+// (B, L, max(3D, F)) bf16; ln* (depth, D) f32; w* in torch's (out, in)
+// layout and b* (depth, out) bf16, depth-stacked. L <= 128, D == 64 * H,
+// D and F multiples of 128, D <= 512.
+int parseq_encoder_blocks(const void* x, void* out, void* h, void* big, const void* ln1_s,
+                          const void* ln1_b, const void* wqkv, const void* bqkv, const void* wo,
+                          const void* bo, const void* ln2_s, const void* ln2_b, const void* w1,
+                          const void* b1, const void* w2, const void* b2, int B, int L, int D,
+                          int H, int F, int depth, float scale, void* stream) {
+  if (B < 1 || L < 1 || L > kMaxL || H < 1 || D != H * kDh || D % kBN || D > kMaxD || F < kBN ||
+      F % kBN || depth < 1)
+    return (int)cudaErrorInvalidValue;
+  const void* ptrs[] = {x, out, h, big, ln1_s, ln1_b, wqkv, bqkv, wo, bo, ln2_s, ln2_b, w1, b1, w2, b2};
+  for (const void* ptr : ptrs)
+    if (!aligned16(ptr)) return (int)cudaErrorMisalignedAddress;
+  Params p;
+  p.x = static_cast<const bf16*>(x);
+  p.out = static_cast<bf16*>(out);
+  p.h = static_cast<bf16*>(h);
+  p.big = static_cast<bf16*>(big);
+  p.ln1_s = static_cast<const float*>(ln1_s);
+  p.ln1_b = static_cast<const float*>(ln1_b);
+  p.ln2_s = static_cast<const float*>(ln2_s);
+  p.ln2_b = static_cast<const float*>(ln2_b);
+  p.wqkv = static_cast<const bf16*>(wqkv);
+  p.bqkv = static_cast<const bf16*>(bqkv);
+  p.wo = static_cast<const bf16*>(wo);
+  p.bo = static_cast<const bf16*>(bo);
+  p.w1 = static_cast<const bf16*>(w1);
+  p.b1 = static_cast<const bf16*>(b1);
+  p.w2 = static_cast<const bf16*>(w2);
+  p.b2 = static_cast<const bf16*>(b2);
+  p.L = L;
+  p.D = D;
+  p.H = H;
+  p.F = F;
+  p.depth = depth;
+  p.ldb = 3 * D > F ? 3 * D : F;
+  p.scale = scale;
+  cudaError_t err = cudaFuncSetAttribute(encoder_blocks_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  if (err != cudaSuccess) return (int)err;
+  encoder_blocks_kernel<<<B, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+int parseq_encoder_blocks_max_len() { return kMaxL; }
+
+const char* parseq_encoder_blocks_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -15,19 +15,24 @@ _SCRIPT = """
 import importlib, pkgutil, sys
 sys.modules['jax'] = None  # any `import jax` now raises ImportError
 import parseq_tpu_torch
-for m in pkgutil.walk_packages(parseq_tpu_torch.__path__, 'parseq_tpu_torch.'):
-    importlib.import_module(m.name)
+walked = [m.name for m in pkgutil.walk_packages(parseq_tpu_torch.__path__, 'parseq_tpu_torch.')]
+for name in walked:
+    importlib.import_module(name)
 shared = sorted(k for k in sys.modules
                 if k.startswith('parseq_tpu.') or k == 'parseq_tpu')
+print(','.join(walked))
 print(','.join(shared))
 """
+# The modules that hold a kernel's wrapper: the walk must reach every one.
+KERNEL_MODULES = ('ar_kernel', 'attention', 'flash_bwd', 'encoder_kernel')
 
 
 def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, '-c', _SCRIPT], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    shared = out.stdout.strip()
+    walked, shared = out.stdout.split('\n')[:2]
+    assert {f'parseq_tpu_torch.ops.{m}' for m in KERNEL_MODULES} <= set(walked.split(','))
     assert shared == '', f'the port loaded modules of the JAX package: {shared}'
 
 
