@@ -21,8 +21,15 @@ is the kernel (its plain version on a CPU tensor), the backward recomputes
 through autograd of the plain version from the saved q, k, v.
 
 Numerics of both versions (those of the TPU kernels): scores are f32 sums of
-bf16 products times `scale`; softmax in f32, normalised before the
-probabilities are cast to v's dtype; PV in v's dtype with f32 accumulation.
+products times `scale`; softmax in f32, normalised before the probabilities
+are cast to v's dtype; PV in v's dtype with f32 accumulation. The kernel
+takes bf16 or f32 operands (all three of one type; o in that type), dh = 64,
+L <= 416 and scale > 0, and raises on anything else.
+
+The card check of B2 and B3 (`chip_smoke.py` and the `gpu` tests) is
+defined here once: `check_operands` draws inputs whose scores spread by
+about CHECK_SCORE_STD, and `check_errors` holds |kernel - plain| relative
+to max|plain| against CHECK_LIMITS.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from parseq_tpu_torch.ops import flash_bwd, layers
 # port keeps it until its own gate is measured on the H100).
 KERNEL_MIN_LEN = 192
 HEAD_DIM = 64  # the kernel's head width (dh of every L >= 192 user)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # q, k, v and o, all of one type
 
 # Kernel launches made in this process by fused_attention_nosplit (B2) and
 # by fused_attention (B3).
@@ -78,6 +86,14 @@ def plain_backward():
         _FLASH_BWD = old
 
 
+def _attend(q, k, v, scale):
+    """Attention on (..., L, dh) at the kernels' rounding points: f32 scores
+    and softmax, p normalised before its cast to v's dtype, PV in v's dtype
+    with f32 sums."""
+    p = torch.softmax((q.float() @ k.float().transpose(-1, -2)) * scale, dim=-1)
+    return p.to(v.dtype) @ v
+
+
 def fused_attention_nosplit_reference(q, k, v, num_heads, scale):
     """Plain PyTorch version of kernel B2. q, k, v: (B, L, D), any strides.
     Returns (B, L, D) in v's dtype."""
@@ -87,17 +103,57 @@ def fused_attention_nosplit_reference(q, k, v, num_heads, scale):
     def split(x):
         return x.reshape(B, L, num_heads, dh).transpose(1, 2)
 
-    s = (split(q).float() @ split(k).float().transpose(-1, -2)) * scale
-    p = torch.softmax(s, dim=-1)
-    o = p.to(v.dtype) @ split(v)
-    return o.transpose(1, 2).reshape(B, L, D)
+    return _attend(split(q), split(k), split(v), scale).transpose(1, 2).reshape(B, L, D)
 
 
 def fused_attention_reference(q, k, v, scale):
     """Plain PyTorch version of kernel B3 (`_reference_attention`). q, k, v:
     (BH, L, dh), any strides. Returns (BH, L, dh) in v's dtype."""
-    p = torch.softmax((q.float() @ k.float().transpose(-1, -2)) * scale, dim=-1)
-    return p.to(v.dtype) @ v
+    return _attend(q, k, v, scale)
+
+
+# The card check of B2 and B3 against their plain versions. Inputs: q and k
+# ~ N(0, sigma^2) with sigma^2 * sqrt(dh) * scale = CHECK_SCORE_STD, v ~ N(0,
+# 1), so the scores spread by about CHECK_SCORE_STD (not ~1, where softmax
+# is near uniform and o is small): every key's weight shows in o.
+CHECK_SCORE_STD = 2.75
+# Limits on (max, mean) of |kernel - plain| / max|plain|. Both sides take
+# the same rounding points with the f32 sums in another order. bf16: an
+# output may round to the neighbouring bf16 value, at most one step,
+# 2^-7 of the largest |o|; such flips are rare (a CPU emulation of another
+# sum order gives a mean of ~1e-7), so the mean limit 2^-14 sits far above
+# them and below the planted faults (tests/test_torch_attention.py): the
+# unnormalised-p fault gives a mean of ~2e-4, the others exceed the max
+# limit 50-fold. f32: only the order of the sums differs (B4's f32 limit).
+CHECK_LIMITS = {torch.bfloat16: (2.0 ** -7, 2.0 ** -14), torch.float32: (1e-5, 1e-6)}
+
+
+def check_operands(B, L, D, dh, scale, generator, dtype=torch.bfloat16):
+    """q, k, v (B, L, D) for the card check, as column views of one packed
+    (B, L, 3D) tensor (the layout of the encoder's projection), drawn from
+    `generator` on its device."""
+    sigma = math.sqrt(CHECK_SCORE_STD / (math.sqrt(dh) * scale))
+    qkv = torch.randn(B, L, 3 * D, generator=generator, device=generator.device)
+    qkv[..., :2 * D] *= sigma
+    qkv = qkv.to(dtype)
+    return qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+
+
+def check_errors(got, want):
+    """(max, mean) of |got - want| over max|want|, in f32."""
+    diff = (got.float() - want.float()).abs()
+    top = want.float().abs().max()
+    return float(diff.max() / top), float(diff.mean() / top)
+
+
+def check_passes(got, want):
+    """True when got is finite, of want's shape and type, and within
+    CHECK_LIMITS of it."""
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.isfinite(got).all():
+        return False
+    rel_max, rel_mean = check_errors(got, want)
+    limit_max, limit_mean = CHECK_LIMITS[want.dtype]
+    return rel_max <= limit_max and rel_mean <= limit_mean
 
 
 def _plain_vjp(plain, inputs, grad, *args):
@@ -115,10 +171,11 @@ def library():
     fn = lib.parseq_attention_nosplit
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 4
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.parseq_attention_split.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 7
-                                               + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+                                               + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                                                  ctypes.c_void_p])
         lib.parseq_attention_split.restype = ctypes.c_int
         lib.parseq_attention_max_len.argtypes = []
         lib.parseq_attention_max_len.restype = ctypes.c_int
@@ -127,10 +184,14 @@ def library():
     return lib
 
 
-def _check_operand(op, name, t, shape, device):
-    if t.device != device or t.dtype != torch.bfloat16 or tuple(t.shape) != shape:
-        raise ValueError(f'{op}: {name} must be a {shape} bf16 tensor on '
-                         f'{device}, got {tuple(t.shape)} {t.dtype} on {t.device}')
+def _check_operand(op, name, t, q):
+    """q, k and v: one shape, one device and one type, bf16 or f32; unit
+    channel stride, strides that are multiples of 8, a 16-byte aligned start."""
+    if q.dtype not in KERNEL_DTYPES:
+        raise ValueError(f'{op}: the kernel takes bf16 or f32 operands, got {q.dtype}')
+    if t.device != q.device or t.dtype != q.dtype or t.shape != q.shape:
+        raise ValueError(f'{op}: {name} must be a {tuple(q.shape)} {q.dtype} tensor on '
+                         f'{q.device}, got {tuple(t.shape)} {t.dtype} on {t.device}')
     if t.stride(2) != 1 or t.stride(0) % 8 or t.stride(1) % 8 or t.data_ptr() % 16:
         raise ValueError(f'{op}: {name} needs unit channel stride, batch and '
                          f'row strides that are multiples of 8 and a 16-byte aligned start, got '
@@ -141,32 +202,40 @@ def _on_cpu(*tensors):
     return all(t.device.type == 'cpu' for t in tensors)
 
 
+def _launch(op, entry, q, k, v, scale, head_ok, *dims):
+    """Checks CUDA operands q, k, v of one (B, L, D) shape, launches the
+    library's `entry` on them and returns o (B, L, D) in their type.
+    `head_ok` is the caller's test of the head width."""
+    if q.device.type != 'cuda':
+        raise ValueError(f'{op}: unsupported device {q.device}')
+    if q.dim() != 3:
+        raise ValueError(f'{op}: q must be 3-d, got {tuple(q.shape)}')
+    for name, t in (('q', q), ('k', k), ('v', v)):
+        _check_operand(op, name, t, q)
+    lib = library()
+    max_len = lib.parseq_attention_max_len()
+    if not (head_ok and q.shape[1] <= max_len and scale > 0):
+        raise ValueError(f'{op}: the kernel needs D == {HEAD_DIM} * heads, L <= {max_len} and '
+                         f'scale > 0 (shape {tuple(q.shape)}, dims {dims}, scale {scale})')
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+                             v.stride(1), *dims, scale, q.dtype == torch.float32, stream)
+    if rc != 0:
+        raise RuntimeError(f'attention kernel launch failed: cuda error {rc} '
+                           f'({lib.parseq_attention_error_string(rc).decode()})')
+    return out
+
+
 def _attention_nosplit(q, k, v, num_heads, scale):
     """Kernel B2's forward: the plain version on CPU tensors; a CUDA tensor
     launches the kernel or raises."""
     global launches
     if _on_cpu(q, k, v):
         return fused_attention_nosplit_reference(q, k, v, num_heads, scale)
-    if q.device.type != 'cuda':
-        raise ValueError(f'fused_attention_nosplit: unsupported device {q.device}')
-    if q.dim() != 3:
-        raise ValueError(f'fused_attention_nosplit: q must be (B, L, D), got {tuple(q.shape)}')
-    B, L, D = q.shape
-    for name, t in (('q', q), ('k', k), ('v', v)):
-        _check_operand('fused_attention_nosplit', name, t, (B, L, D), q.device)
-    lib = library()
-    if D != num_heads * HEAD_DIM or L > lib.parseq_attention_max_len():
-        raise ValueError(f'fused_attention_nosplit: the kernel needs D == {HEAD_DIM} * heads and '
-                         f'L <= {lib.parseq_attention_max_len()} (B={B}, L={L}, D={D}, '
-                         f'heads={num_heads})')
-    out = torch.empty(B, L, D, dtype=torch.bfloat16, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.parseq_attention_nosplit(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                      q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-                                      v.stride(0), v.stride(1), B, L, D, num_heads, scale, stream)
-    if rc != 0:
-        raise RuntimeError(f'attention kernel launch failed: cuda error {rc} '
-                           f'({lib.parseq_attention_error_string(rc).decode()})')
+    out = _launch('fused_attention_nosplit', 'parseq_attention_nosplit', q, k, v, scale,
+                  q.shape[-1] == num_heads * HEAD_DIM, *q.shape, num_heads)
     launches += 1
     return out
 
@@ -200,25 +269,8 @@ def _attention_split(q, k, v, scale):
     global split_launches
     if _on_cpu(q, k, v):
         return fused_attention_reference(q, k, v, scale)
-    if q.device.type != 'cuda':
-        raise ValueError(f'fused_attention: unsupported device {q.device}')
-    if q.dim() != 3:
-        raise ValueError(f'fused_attention: q must be (BH, L, dh), got {tuple(q.shape)}')
-    BH, L, dh = q.shape
-    for name, t in (('q', q), ('k', k), ('v', v)):
-        _check_operand('fused_attention', name, t, (BH, L, dh), q.device)
-    lib = library()
-    if dh != HEAD_DIM or L > lib.parseq_attention_max_len():
-        raise ValueError(f'fused_attention: the kernel needs dh == {HEAD_DIM} and '
-                         f'L <= {lib.parseq_attention_max_len()} (BH={BH}, L={L}, dh={dh})')
-    out = torch.empty(BH, L, dh, dtype=torch.bfloat16, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.parseq_attention_split(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                    q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-                                    v.stride(0), v.stride(1), BH, L, scale, stream)
-    if rc != 0:
-        raise RuntimeError(f'attention kernel launch failed: cuda error {rc} '
-                           f'({lib.parseq_attention_error_string(rc).decode()})')
+    out = _launch('fused_attention', 'parseq_attention_split', q, k, v, scale,
+                  q.shape[-1] == HEAD_DIM, *q.shape[:2])
     split_launches += 1
     return out
 
@@ -239,7 +291,7 @@ def fused_attention(q, k, v, scale):
     """Fused attention on the head-split layout, no mask (kernel B3). q, k, v:
     (BH, L, dh) with unit channel stride; returns (BH, L, dh) contiguous. On
     CPU tensors the forward is the plain version; a CUDA tensor launches the
-    kernel (bf16, dh = 64) or raises. Under autograd the backward
+    kernel (bf16 or f32, dh = 64, L <= 416) or raises. Under autograd the backward
     recomputes through the plain version."""
     return _FusedAttention.apply(q, k, v, scale)
 

@@ -1,7 +1,8 @@
 """Kernel B2 (fused no-split attention): the port's plain version against
 the JAX Pallas kernel in interpret mode, the routing of
-encoder_self_attention, and the CUDA kernel against the plain version on the
-card (marked `gpu`, skipped without one).
+encoder_self_attention, the card check's inputs and limits against faults
+planted in the plain version, and the CUDA kernel (bf16 and f32) against the
+plain version on the card (marked `gpu`, skipped without one).
 
 The GPU host has no jax, so jax is imported inside the fixture that needs
 it: there the JAX comparisons skip and the `gpu` cases run
@@ -112,6 +113,107 @@ def test_other_devices_raise():
         attention.fused_attention_nosplit(t, t, t, 1, 0.125)
 
 
+# The card check's inputs and limits (attention.check_operands,
+# CHECK_LIMITS), shared with chip_smoke.py, exercised on the CPU.
+ATTEND = attention._attend
+
+
+def _uniform(q, k, v, scale):
+    p = torch.full((*q.shape[:-1], k.shape[-2]), 1.0 / k.shape[-2])
+    return p.to(v.dtype) @ v
+
+
+def _other_heads_keys(q, k, v, scale):
+    return ATTEND(q, k.roll(1, dims=-3), v, scale)
+
+
+def _last_8_keys_masked(q, k, v, scale):
+    s = (q.float() @ k.float().transpose(-1, -2)) * scale
+    s[..., -8:] = -math.inf
+    return torch.softmax(s, dim=-1).to(v.dtype) @ v
+
+
+def _last_query_tile_dropped(q, k, v, scale):
+    o = ATTEND(q, k, v, scale).clone()
+    o[..., (q.shape[-2] - 1) // 16 * 16:, :] = 0
+    return o
+
+
+def _p_cast_before_normalising(q, k, v, scale):
+    s = (q.float() @ k.float().transpose(-1, -2)) * scale
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    return ((e.to(v.dtype) @ v).float() / e.sum(-1, keepdim=True)).to(v.dtype)
+
+
+def _another_sum_order(q, k, v, scale):
+    """What a correct kernel computes, with other roundings inside f32: f64
+    sums rounded to f32, exp as ex2, p normalised by a multiply."""
+    s = (q.double() @ k.double().transpose(-1, -2)).float() * scale
+    e = torch.exp2((s - s.amax(-1, keepdim=True)) * 1.4426950408889634)
+    p = e * (1.0 / e.sum(-1, keepdim=True))
+    return (p.to(v.dtype).double() @ v.double()).to(v.dtype)
+
+
+def _check_case(layout, dtype=torch.bfloat16):
+    """Operands and the plain version of B2 at ViTSTR's (2, 197, 6, 384) or of
+    B3 at (12, 128, 64), drawn as the card check draws them."""
+    gen = torch.Generator().manual_seed(7)
+    if layout == 'B2':
+        q, k, v = attention.check_operands(2, 197, 384, 64, 0.125, gen, dtype)
+        return (q, k, v), lambda *t: attention.fused_attention_nosplit_reference(*t, 6, 0.125)
+    q, k, v = attention.check_operands(12, 128, 64, 64, 0.125, gen, dtype)
+    return (q, k, v), lambda *t: attention.fused_attention_reference(*t, 0.125)
+
+
+def test_check_operands_spread_scores():
+    """Scores of the check's inputs spread by about CHECK_SCORE_STD (N(0, 1)
+    inputs at scale 0.125 spread them by 1, where softmax is near uniform);
+    q, k, v are column views of one packed projection, in the given type."""
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = attention.check_operands(2, 197, 384, 64, 0.125, gen, torch.float32)
+    assert q.dtype == torch.float32 and q.stride() == (197 * 3 * 384, 3 * 384, 1)
+    assert k.data_ptr() == q.data_ptr() + 384 * 4 and v.data_ptr() == k.data_ptr() + 384 * 4
+    qh, kh = (t.reshape(2, 197, 6, 64).transpose(1, 2) for t in (q, k))
+    spread = float(((qh @ kh.transpose(-1, -2)) * 0.125).std(-1).mean())
+    assert 0.9 * attention.CHECK_SCORE_STD < spread < 1.1 * attention.CHECK_SCORE_STD
+    assert 0.95 < float(v.std()) < 1.05
+    assert attention.check_operands(1, 5, 64, 64, 0.125, gen)[0].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize('layout', ['B2', 'B3'])
+@pytest.mark.parametrize('fault', [_uniform, _other_heads_keys, _last_8_keys_masked,
+                                   _last_query_tile_dropped, _p_cast_before_normalising],
+                         ids=lambda f: f.__name__[1:])
+def test_check_limits_catch_planted_faults(monkeypatch, layout, fault):
+    """A plain version with a planted fault fails the card check against the
+    correct one, in bf16 at the shapes the check runs: by more than twice
+    the max limit or twice the mean limit."""
+    operands, plain = _check_case(layout)
+    want = plain(*operands)
+    monkeypatch.setattr(attention, '_attend', fault)
+    bad = plain(*operands)
+    rel_max, rel_mean = attention.check_errors(bad, want)
+    limit_max, limit_mean = attention.CHECK_LIMITS[torch.bfloat16]
+    print(f'{layout} {fault.__name__}: relative max {rel_max:.3e}, mean {rel_mean:.3e}')
+    assert not attention.check_passes(bad, want)
+    assert rel_max > 2 * limit_max or rel_mean > 2 * limit_mean
+
+
+@pytest.mark.parametrize('layout', ['B2', 'B3'])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32], ids=['bf16', 'f32'])
+def test_check_limits_pass_another_sum_order(monkeypatch, layout, dtype):
+    """The same function with other roundings inside f32 (what the kernel
+    does) stays within a tenth of the limits."""
+    operands, plain = _check_case(layout, dtype)
+    want = plain(*operands)
+    monkeypatch.setattr(attention, '_attend', _another_sum_order)
+    got = plain(*operands)
+    rel_max, rel_mean = attention.check_errors(got, want)
+    limit_max, limit_mean = attention.CHECK_LIMITS[dtype]
+    assert attention.check_passes(got, want)
+    assert rel_mean <= limit_mean / 10 and rel_max <= limit_max
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -119,18 +221,44 @@ def cuda_device():
     return torch.device('cuda')
 
 
+# Every length class of the kernel: 1 row, ragged single tiles, one and two
+# warps' worth of key tiles, PARSeq-S's 128, the L >= 192 users and the
+# longest the kernel takes.
+GPU_LENGTHS = (1, 5, 16, 17, 128, 129, 196, 197, 256, 416)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize('B,L,h,D', [(3, 197, 6, 384), (2, 196, 6, 384), (2, 256, 8, 512),
-                                     (1, 5, 1, 64)])
-def test_cuda_kernel_matches_plain(cuda_device, B, L, h, D):
-    """bf16 p and o, summed in another order: about one bf16 step (2e-2)."""
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32], ids=['bf16', 'f32'])
+@pytest.mark.parametrize('B,L,h', [(2, L, 6) for L in GPU_LENGTHS] + [(2, 256, 8), (1, 197, 6)])
+def test_cuda_kernel_matches_plain(cuda_device, B, L, h, dtype):
+    """Within CHECK_LIMITS of the plain version on the check's inputs, and
+    strided (views of the packed projection) and contiguous operands give
+    the same bits."""
+    D = 64 * h
     gen = torch.Generator(device=cuda_device).manual_seed(L)
-    qkv = torch.randn(B, L, 3 * D, generator=gen, device=cuda_device).to(torch.bfloat16)
-    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    q, k, v = attention.check_operands(B, L, D, 64, 0.125, gen, dtype)
     before = attention.launches
     got = attention.fused_attention_nosplit(q, k, v, h, 0.125)
     torch.cuda.synchronize()
     assert attention.launches == before + 1
-    assert got.shape == (B, L, D) and got.is_contiguous()
+    assert got.shape == (B, L, D) and got.is_contiguous() and got.dtype == dtype
     want = attention.fused_attention_nosplit_reference(q, k, v, h, 0.125)
-    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2e-2)
+    assert attention.check_passes(got, want), attention.check_errors(got, want)
+    same = attention.fused_attention_nosplit(q.contiguous(), k.contiguous(), v.contiguous(), h,
+                                             0.125)
+    assert torch.equal(got, same)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_rejects_other_operands(cuda_device):
+    """bf16 or f32, all three of one type; dh = 64; scale > 0."""
+    q, k, v = attention.check_operands(1, 197, 384, 64, 0.125,
+                                       torch.Generator(device=cuda_device).manual_seed(0))
+    with pytest.raises(ValueError, match='bf16 or f32'):
+        attention.fused_attention_nosplit(q.half(), k.half(), v.half(), 6, 0.125)
+    with pytest.raises(ValueError, match='must be'):
+        attention.fused_attention_nosplit(q, k.float(), v, 6, 0.125)
+    with pytest.raises(ValueError, match='D == 64'):
+        attention.fused_attention_nosplit(q, k, v, 4, 0.125)
+    with pytest.raises(ValueError, match='scale > 0'):
+        attention.fused_attention_nosplit(q, k, v, 6, -0.125)

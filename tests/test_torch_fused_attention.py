@@ -150,20 +150,26 @@ def _cuda_leaves(shape, device, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('BH,L', [(12, 128), (18, 197), (6, 5)])
-def test_cuda_b3_matches_plain(cuda_device, BH, L):
-    """Forward: bf16 p and o, summed in another order, about one bf16 step
-    (2e-2). Gradients, a wiring check: the backward is autograd of the plain
-    version in both, from the same q, k, v, so they are equal whatever the
-    kernel computes; their values are held against JAX's custom VJP by
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32], ids=['bf16', 'f32'])
+@pytest.mark.parametrize('BH,L', [(12, 128), (18, 197), (6, 5), (6, 416)])
+def test_cuda_b3_matches_plain(cuda_device, BH, L, dtype):
+    """Forward: within attention.CHECK_LIMITS of the plain version on the
+    card check's inputs (contiguous (BH, L, 64) leaves). Gradients, a wiring
+    check: the backward is autograd of the plain version in both, from the
+    same q, k, v, so they are equal whatever the kernel computes; their
+    values are held against JAX's custom VJP by
     test_fused_attention_grads_match_jax_custom_vjp."""
-    q, k, v, g = _cuda_leaves((BH, L, 64), cuda_device, L)
+    gen = torch.Generator(device=cuda_device).manual_seed(L)
+    q, k, v = (t.contiguous().requires_grad_()
+               for t in attention.check_operands(BH, L, 64, 64, 0.125, gen, dtype))
+    g = torch.randn(BH, L, 64, generator=gen, device=cuda_device).to(dtype)
     before = attention.split_launches
     got = attention.fused_attention(q, k, v, 0.125)
     torch.cuda.synchronize()
     assert attention.split_launches == before + 1
     want = attention.fused_attention_reference(q, k, v, 0.125)
-    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2e-2)
+    assert got.dtype == dtype and attention.check_passes(got.detach(), want.detach()), \
+        attention.check_errors(got.detach(), want.detach())
     grads = torch.autograd.grad(got, (q, k, v), g)
     wants = torch.autograd.grad(want, (q, k, v), g)
     for a, b in zip(grads, wants):
