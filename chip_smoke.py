@@ -20,8 +20,12 @@ from a seed), in phases, each printing its result:
      (ops/attention.py: check_operands, scores spread by ~2.75; |kernel -
      plain| relative to max|plain| within CHECK_LIMITS in max and mean),
      strided and contiguous operands bit-identical; B4 (attention backward)
-     at PARSeq-S training's (B, h, L, dh) = (48, 6, 128, 64) and
-     (384, 6, 128, 64), in bf16 and f32; B3's gradients at L = 128 and 197
+     at L = 8, 16, 120, 128, 136, 256, dh = 64 and 32, B = 1, 7, 48 and
+     PARSeq-S training's whole batch (384, 6, 128, 64), in bf16 and f32, on
+     its shared card check (ops/flash_bwd.py: check_operands, scores spread
+     by ~2.75; |kernel - plain| of each of dq, dk, dv relative to its
+     max|plain| within CHECK_LIMITS in max and mean), bf16 strided and
+     contiguous operands bit-identical; B3's gradients at L = 128 and 197
      through its autograd Function against autograd of its plain version (a
      wiring check: both backwards are that autograd); B2's gradients
      likewise under autograd at ViTSTR's (197, 6, 384); B5 (all
@@ -117,11 +121,16 @@ EOS_BIAS = 2.0
 # ~1e-2; greedy picks must agree where the f32 top-2 margin exceeds 0.1.
 MAIN_ATOL = 5e-2
 MAIN_MARGIN = 0.1
-# B4 vs plain, relative to the largest reference value of each of dq, dk,
-# dv: bf16 outputs are rounded to bf16 (2^-8 relative) and the f32 sums are
-# taken in another order; f32 outputs differ only by the order of the sums.
-B4_RTOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-5}
+# B4 vs plain: the shared card check of ops/flash_bwd.py (inputs from
+# check_operands, limits CHECK_LIMITS on each of dq, dk, dv), at every length
+# class of the kernel (one key tile, ragged tiles, PARSeq-S's 128, one past
+# it, a ragged last tile of a 4-block cluster, the longest), both head
+# widths, B = 1, 7, 48, head counts other than 6 and the whole batch.
 B4_SHAPES = ((48, 6, 128, 64), (384, 6, 128, 64))  # one microbatch, the whole batch
+B4_CHECK_SHAPES = (tuple((B, 6, L, 64) for L in (8, 16, 120, 128, 136, 200, 256)
+                         for B in (1, 7, 48))
+                   + tuple((7, 6, L, 32) for L in (8, 120, 136, 200, 256))
+                   + ((3, 2, 24, 32), (2, 3, 200, 64), (5, 1, 200, 32), B4_SHAPES[1]))
 # B3 at PARSeq-S's and ViTSTR's encoder lengths, 6 heads of 64 per image.
 B3_LENGTHS = (128, 197)
 # B3 and B2 gradients, a wiring check: the backward is autograd of the plain
@@ -238,18 +247,6 @@ def b5_bound(B, L, D, F, depth):
     weights = 2 * (3 * D * D + D * D + 2 * D * F + 3 * D + D + F + D) + 4 * 4 * D
     bf16 = 2 * B * L * D * (3 * D + D + 2 * F) + 4 * B * L * L * D
     return bound(2 * B * L * D * 2 + depth * weights, bf16_flops=depth * bf16)
-
-
-def b4_case(B, h, L, dh, gen, dtype):
-    """Operands of B4 as views of one packed projection, dO, and output views
-    of one packed gradient, as the training path gives them."""
-    D = h * dh
-    qkv = torch.randn(B, L, 3 * D, generator=gen, device='cuda').to(dtype)
-    parts = [heads(qkv[..., i * D:(i + 1) * D], h) for i in range(3)]
-    do = torch.randn(B, h, L, dh, generator=gen, device='cuda').to(dtype)
-    grad = torch.empty_like(qkv)
-    outs = [heads(grad[..., i * D:(i + 1) * D], h) for i in range(3)]
-    return parts, do, outs
 
 
 def grad_check(what, got, want, leaves, grad):
@@ -389,26 +386,35 @@ def main():
                   f'mean {worst["B2"][1]:.3e}, B3 max {worst["B3"][0]:.3e} mean '
                   f'{worst["B3"][1]:.3e} (limits {limits[0]:.3g}, {limits[1]:.3g}) ok')
 
-        for B, h, L, dh in B4_SHAPES:
-            for dtype in (torch.bfloat16, torch.float32):
-                parts, do, outs = b4_case(B, h, L, dh, gen, dtype)
-                flash_bwd.attention_flashbwd_backward(*parts, do, dh ** -0.5, *outs)
+        for dtype in (torch.bfloat16, torch.float32):
+            limits = flash_bwd.CHECK_LIMITS[dtype]
+            worst = (0.0, 0.0)
+            for B, h, L, dh in B4_CHECK_SHAPES:
+                q, k, v, do, dq, dk, dv, scale = flash_bwd.check_operands(B, h, L, dh, gen, dtype)
+                flash_bwd.attention_flashbwd_backward(q, k, v, do, scale, dq, dk, dv)
                 torch.cuda.synchronize()
-                wants = flash_bwd.attention_flashbwd_backward_reference(*parts, do, dh ** -0.5)
-                errs = []
-                for what, got, want in zip(('dq', 'dk', 'dv'), outs, wants):
-                    err = float((got.float() - want.float()).abs().max())
-                    limit = B4_RTOL[dtype] * float(want.float().abs().max())
-                    if not (got.dtype == dtype and torch.isfinite(got).all() and err <= limit):
-                        raise AssertionError(f'B4 {what} (B, h, L, dh) = {(B, h, L, dh)} {dtype} '
-                                             f'disagrees with its plain version: max_abs_err='
-                                             f'{err} (limit {limit})')
-                    errs.append(err)
-                    if dtype == torch.bfloat16:
-                        b4_err = max(b4_err, err)
-                print(f'B4 (B, h, L, dh)={(B, h, L, dh)} {str(dtype)[6:]}: q, k, v, dq, dk, dv '
-                      f'strided in packed (B, L, 3D); max_abs_err dq/dk/dv '
-                      f'{"/".join(f"{e:.3e}" for e in errs)} ok')
+                got = (dq, dk, dv)
+                want = flash_bwd.attention_flashbwd_backward_reference(q, k, v, do, scale)
+                errs = flash_bwd.check_errors(got, want)
+                if not flash_bwd.check_passes(got, want):
+                    raise AssertionError(f'B4 (B, h, L, dh) = {(B, h, L, dh)} {dtype} disagrees '
+                                         f'with its plain version: |diff| / max|plain| (max, '
+                                         f'mean) of dq, dk, dv {errs} (limits {limits})')
+                if dtype == torch.bfloat16:
+                    same = [torch.empty_like(dq) for _ in range(3)]
+                    flash_bwd.attention_flashbwd_backward(q.contiguous(), k.contiguous(),
+                                                          v.contiguous(), do, scale, *same)
+                    if not all(torch.equal(a, b) for a, b in zip(got, same)):
+                        raise AssertionError(f'B4 (B, h, L, dh) = {(B, h, L, dh)} gives another '
+                                             f'result on contiguous operands')
+                    b4_err = max(b4_err, *(float((a.float() - b.float()).abs().max())
+                                           for a, b in zip(got, want)))
+                worst = tuple(max(w, *(e[i] for e in errs)) for i, w in enumerate(worst))
+            print(f'B4 {str(dtype)[6:]}, (B, h, L, dh) in {B4_CHECK_SHAPES}: q, k, v, dq, dk, dv '
+                  f'strided in packed (B, L, 3D)' + (' and contiguous (equal)'
+                                                       if dtype == torch.bfloat16 else '')
+                  + f'; worst |diff| / max|plain| over dq, dk, dv: max {worst[0]:.3e}, mean '
+                  f'{worst[1]:.3e} (limits {limits[0]:.3g}, {limits[1]:.3g}) ok')
 
     for L in B3_LENGTHS:
         for B in BATCHES:
@@ -635,18 +641,18 @@ def main():
               f'(nn.TransformerEncoder) {bench["library_ms"]:.4f} ms, eager blocks '
               f'{bench["eager_ms"]:.4f} ms, bound {b5_ms[0]:.4f} ms ({b5_ms[1]})')
     for B, h, L, dh in B4_SHAPES:
-        parts, do, outs = b4_case(B, h, L, dh, gen, torch.bfloat16)
+        *parts, do, dq, dk, dv, scale = flash_bwd.check_operands(B, h, L, dh, gen)
         with torch.inference_mode():
             kernel_ms = cuda_median_ms(
-                lambda: flash_bwd.attention_flashbwd_backward(*parts, do, dh ** -0.5, *outs),
+                lambda: flash_bwd.attention_flashbwd_backward(*parts, do, scale, dq, dk, dv),
                 calls=BACK_TO_BACK)
             plain_ms = cuda_median_ms(
-                lambda: flash_bwd.attention_flashbwd_backward_reference(*parts, do, dh ** -0.5),
+                lambda: flash_bwd.attention_flashbwd_backward_reference(*parts, do, scale),
                 calls=BACK_TO_BACK)
         # The library's backward alone: its forward graph is built once,
         # outside the timed window, and differentiated again on every call.
         leaves = [t.detach().requires_grad_() for t in parts]
-        out = F.scaled_dot_product_attention(*leaves, scale=dh ** -0.5)
+        out = F.scaled_dot_product_attention(*leaves, scale=scale)
         library_ms = cuda_median_ms(
             lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), calls=BACK_TO_BACK)
         del out, leaves
@@ -687,7 +693,10 @@ def main():
          'ms': timed['B4', 48][0], 'plain_ms': timed['B4', 48][1],
          'bound_ms': b4_ms[0], 'bound_us': b4_ms[0] * 1e3, 'bound_by': b4_ms[1],
          'library_ms': timed['B4', 48][2],
-         'at': '(B, h, L, dh)=(48, 6, 128, 64) bf16 (PARSeq-S training microbatch)'},
+         'at': '(B, h, L, dh)=(48, 6, 128, 64) bf16 (PARSeq-S training microbatch)',
+         'whole_batch': {'at': '(384, 6, 128, 64)', 'ms': timed['B4', 384][0],
+                         'plain_ms': timed['B4', 384][1], 'library_ms': timed['B4', 384][2],
+                         'bound_ms': b4_bound(*B4_SHAPES[1])[0]}},
         {'name': 'fused_attention', 'route': 'cuda',
          'source': 'parseq_tpu_torch/csrc/attention.cu',
          'replaces': 'parseq_tpu/ops/attention.py:82',
@@ -867,7 +876,7 @@ def train_phase(dev, card, main_launches):
     kernels = [e for e in prof.key_averages() if e.device_type.name == 'CUDA']
     dev_ms = {e.key: e.self_device_time_total / 1e3 for e in kernels}
     busy = sum(dev_ms.values())
-    b4_dev = sum(t for k, t in dev_ms.items() if 'rows_kernel' in k or 'cols_kernel' in k)
+    b4_dev = sum(t for k, t in dev_ms.items() if 'bwd_kernel' in k)
     top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:8]
     print(f'profiled step [{card}]: device busy {busy:.2f} ms = {busy / b4_ms:.1%} of the '
           f'{b4_ms:.2f} ms step; B4 {b4_dev:.2f} ms ({b4_dev / b4_ms:.1%}); '

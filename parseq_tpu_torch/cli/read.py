@@ -2,10 +2,12 @@
 parseq_tpu/cli/read.py).
 
 Usage:
-    python -m parseq_tpu_torch.cli.read <checkpoint.pt> --images img1.jpg img2.png
+    python -m parseq_tpu_torch.cli.read <checkpoint> --images img1.jpg img2.png
         [--device cuda|cpu] [model_override:type=value ...]
 
-`checkpoint` is a reference PyTorch .pt file. The default device is cuda;
+`checkpoint` is a reference PyTorch .pt or .ckpt file, a checkpoint the
+port's trainer wrote, or `pretrained=<experiment>` for released weights
+found in the local checksum cache (utils/pretrained.py). The default device is cuda;
 with no GPU the command fails unless --device cpu is given.
 """
 
@@ -22,7 +24,7 @@ from parseq_tpu_torch.utils.registry import load_from_checkpoint
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument('checkpoint', help='Reference PyTorch .pt file')
+    ap.add_argument('checkpoint', help='PyTorch .pt / .ckpt file or pretrained=<experiment>')
     ap.add_argument('--images', nargs='+', required=True, help='Image files to read')
     ap.add_argument('--device', default='cuda', help='cuda (default) or cpu')
     ap.add_argument('model_args', nargs='*', help='Model overrides key:type=value')

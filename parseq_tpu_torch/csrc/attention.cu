@@ -83,9 +83,7 @@
 // warpgroups per block that overlap one's softmax with the other's
 // products.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -121,13 +119,11 @@ struct Params {
 };
 
 // Element offset of channels 8c..8c+7 (bf16) or 4c..4c+3 (f32) of staged
-// key row j. bf16: K and V are kept as wgmma core matrices, 8 rows x 16
-// bytes each (128 contiguous bytes), the 8 of a group of 8 rows side by
-// side: row j, 16-byte chunk c at (j / 8) * 1024 + c * 128 + (j % 8) * 16
-// bytes. f32: plain rows of kDh + 4 floats.
+// key row j. bf16: K and V are kept as wgmma core matrices (core_at,
+// hopper.cuh). f32: plain rows of kDh + 4 floats.
 template <typename T>
 __host__ __device__ constexpr int kv_at(int j, int c) {
-  return sizeof(T) == 2 ? (j >> 3) * 512 + c * 64 + (j & 7) * 8 : j * row_stride<float>() + c * 4;
+  return sizeof(T) == 2 ? core_at(j, 8 * c, kDh / 8) : j * row_stride<float>() + c * 4;
 }
 
 // Keys staged in shared memory: bf16 stages zeros up to a whole number of
@@ -143,23 +139,6 @@ size_t smem_bytes(int L) {
   const int Lk = staged_keys<T, KT>(L);
   return sizeof(T) == 2 ? sizeof(bf16) * (2 * Lk * kDh + kWarps * 16 * row_stride<bf16>())
                         : sizeof(float) * 2 * Lk * row_stride<float>();
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy through L2 only; fills zeros when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
@@ -230,37 +209,10 @@ __device__ __forceinline__ void wgmma_v64(float* d, const uint32_t* a, uint64_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-// Shared-memory matrix descriptor of wgmma, no swizzle: start address, LBO
-// (stride between core matrices along K) and SBO (along M or N), in bytes.
-__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((smem_addr(p) & 0x3ffff) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit_and_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Shared-memory writes of this thread (here cp.async's) made visible to the
-// async proxy that wgmma reads through; a block barrier follows.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // Byte strides of the core-matrix layout (kv_at<bf16>): along K of QK^T
 // (channels) 128 B, along its N (keys) 1024 B; for PV, K (keys) 1024 B and
 // N (channels) 128 B.
 constexpr uint32_t kQkLbo = 128, kQkSbo = 1024, kPvLbo = 1024, kPvSbo = 128;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 __device__ __forceinline__ float dot4(float acc, float4 a, float4 b) {
   acc = fmaf(a.x, b.x, acc);
@@ -408,16 +360,6 @@ __device__ __forceinline__ void exp_sum(float (&s)[2 * KT][4], float ma, float m
     }
   suma = (pa[0] + pa[1]) + (pa[2] + pa[3]);
   sumb = (pb[0] + pb[1]) + (pb[2] + pb[3]);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // o += p v for keys c0 .. c0 + 16*KT - 1: bf16 p (normalised, packed to A

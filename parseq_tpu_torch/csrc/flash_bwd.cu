@@ -4,51 +4,94 @@
 // Replaces the Pallas TPU kernel parseq_tpu/ops/flash_bwd.py:_bwd_pallas
 // (line 64, pallas_call at :86; custom VJP attention_flashbwd), which the
 // JAX package runs for encoder self-attention in training. For batch row b
-// and head h, with q, k, v, dO of shape (L, dh) and everything in f32:
-//   S  = scale * Q K^T          P = softmax(S) (row max, e / sum e)
+// and head h, with q, k, v, dO of shape (L, dh) and every step in f32
+// (`_one_head_bwd`, the TPU kernel's rounding points):
+//   S  = scale * Q K^T          P = softmax(S) (exact row max, e / sum e)
 //   dV = P^T dO                 dP = dO V^T
-//   dS = P * (dP - rowsum(dP * P))
+//   dS = P * (dP - delta)       delta = rowsum(dP * P)
 //   dQ = scale * dS K           dK = scale * dS^T Q
-// Inputs are bf16 or f32 and are widened to f32; P, dP and dS stay f32 and
-// every product is an f32 sum of f32 products (as in the TPU kernel, which
-// casts its blocks to f32 before the dot_generals); outputs are stored in
-// the inputs' type.
+// Inputs are bf16 or f32 (all of one type); outputs are stored in it.
 //
 // What bounds it on this card: it must read q, k, v, dO and write dq, dk,
 // dv: 7 * B*L*h*dh * 2 bytes in bf16, 33 MB at PARSeq-S's microbatch
-// (B, h, L, dh) = (48, 6, 128, 64), ~9.9 us at 3.35 TB/s. Its
-// 10 * L^2 * dh * B*h = 3.0 GFLOP are ~3 us at the bf16 tensor-core peak, so
-// the bound is the memory. The plain PyTorch version writes and re-reads the
-// (B, h, L, L) f32 scores, probabilities and their gradients (19 MB each at
-// that shape) several times.
+// (B, h, L, dh) = (48, 6, 128, 64), ~9.9 us at 3.35 TB/s. Its five products,
+// 10 * L^2 * dh * B*h = 3.0 GFLOP (4.8 with the three split products below
+// counted twice), are ~3-5 us at the bf16 tensor-core peak, so the bound is
+// the memory.
 //
-// What the design does about it: the (L, L) tiles never leave the chip.
-//   * Pass 1, grid (query tiles of 32, heads, batch): a block stages all of
-//     its head's K and V (f32, zero rows past L) and its 32 Q and dO rows in
-//     shared memory. Each warp owns 4 query rows; its lanes own key columns
-//     j = lane + 32c, so S and dP for those rows live in registers and the
-//     softmax max / sum and rowsum(dP * P) are warp shuffles. dS goes to
-//     shared memory once, and dQ = scale dS K is written out. The row
-//     statistics (max, sum, rowsum(dP * P)) go to a small f32 scratch.
-//   * Pass 2, grid (key tiles of 32, heads, batch): a block stages its 32 K
-//     and V rows and walks over the query tiles, recomputing S and dP for
-//     its keys with the same summation order, P from the stored row max and
-//     sum, and accumulating dV and dK for its keys in registers.
-//   * Every row in shared memory is padded by 4 floats, so the float4 loads
-//     along the head dimension are free of bank conflicts.
-// The products run on the f32 cores (67 TFLOP/s peak), not the tensor
-// cores: P and dS must not be rounded to bf16. Pass 1 and pass 2 recompute
-// S and dP, 14 L^2 dh FLOP per head instead of 10. Not done yet: bf16
-// tensor-core products for Q K^T and dO V^T (exact in f32 for bf16 inputs),
-// cp.async/TMA staging.
+// bf16 design (one kernel, `bwd_kernel`), point by point against the first
+// design of this kernel, which it replaces (two passes on the f32 cores):
+//   1. One launch, no scratch [pass 1 wrote (B, H, L, 3) f32 row statistics
+//      and pass 2 recomputed S and dP from them]: a head's query rows are
+//      cut into C = ceil(L / 64) query blocks of 64, one warpgroup each.
+//      A warpgroup computes its rows' S and dP against all keys, the exact
+//      softmax, delta and dS, and finishes their dQ; it also forms the
+//      partial dK and dV of every key over its own 64 queries, and finishes
+//      dK and dV of key tile qb (keys 64 qb .. 64 qb + 63, qb its query
+//      block) by adding the other warpgroups' partials of those keys, in
+//      query-block order, without atomics or device memory. At L <= 128
+//      one block holds both warpgroups of a head (the partials go through
+//      its shared memory, two named barriers); above, a cluster of C blocks
+//      of one warpgroup does (distributed shared memory, cluster barriers).
+//      S and dP are computed once, except at L > 128 (C > 2), where the
+//      whole score row (128 registers a thread at L = 256) leaves no room
+//      for dP's: there dP is formed one 64-key tile at a time, twice (for
+//      delta, then for dS), 2 of the 5 products' worth more work at L > 128
+//      only, where no model trains.
+//   2. Operands once, in bf16 [every block restaged the head's K and V, or
+//      Q and dO, widened to f32, one element per thread]: 16-byte cp.async
+//      copies stage Q and dO rows and the head's K and V, bf16, zeros past
+//      L, in wgmma's core-matrix layout (csrc/hopper.cuh); Q and K first, so
+//      S starts while dO and V land. At L <= 128 K and V are staged once per
+//      head; in a cluster (L > 128) each block stages them, and the blocks
+//      run together, so the second request for a line finds it in L2.
+//      Shared memory for dh = 64: 64 KB at L <= 64, 192 KB at L <= 128 (two
+//      warpgroups), 160 KB at L <= 192, 208 KB at L <= 256 (a block each).
+//   3. S = Q K^T and dP = dO V^T by wgmma m64n64k16 [f32 FFMA], bf16 in,
+//      f32 sums, both operands from shared memory. For bf16 inputs each
+//      product is exact in f32, so S and dP are the TPU kernel's values up
+//      to the order of the sums.
+//   4. dV = P^T dO, dQ = dS K and dK = dS^T Q keep P and dS to 16
+//      significant bits [f32 FFMA]: each is split into bf16 hi = bf16(x)
+//      and lo = bf16(x - hi), and two wgmmas (hi, then lo) go into one f32
+//      accumulator; dO, K and Q are exact in bf16. A single bf16 rounding of
+//      P and dS would be the library's rounding points, not the TPU
+//      kernel's. P^T and dS^T cross the warpgroup's rows, so P and dS go to
+//      shared memory as hi and lo tiles (4 x 64 x 64 bf16 = 32 KB a key
+//      tile and warpgroup), which wgmma reads K-major for dQ and, with its
+//      transpose bit, MN-major for dV and dK.
+//   5. The softmax stays in registers [dS went through shared memory and
+//      dQ was a scalar loop over it]: a warp holds its 16 query rows' whole
+//      S and dP rows in the wgmma accumulators; exact max and sum by quad
+//      shuffles, exp as one FFMA and ex2, P normalised in f32, delta from
+//      the f32 P and dP, dS formed in place and split (two packed converts
+//      a pair) on its way to shared memory.
+//   6. Filling the card: at L <= 128 a block (8 warps, 192 KB, one a SM)
+//      is persistent: the grid is as many blocks as the card holds at once
+//      (132), each walks the heads blockIdx.x, + 132, ..., and stages the
+//      next head's K and V as soon as its dQ is done with them and its Q
+//      and dO rows once its key tiles are, so only a block's first head
+//      waits for its operands. (48, 6, 128, 64) is 288 heads: 2.2 heads a
+//      block, so the last round is one fifth full (the tail stays);
+//      (384, 6, 128, 64) is 2,304 heads, 17.5 a block. Above L = 128 a
+//      cluster per head, as many as the card holds, in waves. dQ, dK and dV
+//      leave through shared memory as whole 16-byte row pieces; the partial
+//      tiles a warpgroup hands on go where its P and dS tiles of the same
+//      keys were, and it computes its own key tile last, so the exchange
+//      needs no more shared memory.
+// f32 operands keep the first design's two passes on the f32 cores
+// (namespace fp32 below; TF32 tensor cores would not hold the f32 limits):
+// checked on the card, not timed; no model path trains in f32 on the card.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <cooperative_groups.h>
 
-namespace {
+#include "hopper.cuh"
 
-typedef __nv_bfloat16 bf16;
+namespace cg = cooperative_groups;
+
+namespace fp32 {
+
+// The first design's two-pass kernels, instantiated for f32 operands only.
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -75,10 +118,8 @@ struct Params {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16_rn(x); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -397,6 +438,489 @@ int launch(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+}  // namespace fp32
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kWgThreads = 128;  // threads of a warpgroup
+constexpr int kTile = 64;      // query rows of a block; keys of a key tile
+constexpr int kTileElems = kTile * kTile;
+constexpr int kMaxL = 256;
+constexpr float kNegMax = -3.402823466e38f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct Params {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const bf16* dout;
+  bf16* dq;
+  bf16* dk;
+  bf16* dv;
+  // (batch, head, row) strides in elements of q, k, v, dout, dq, dk, dv
+  long long st[7][3];
+  long long BH;  // heads: batch rows x heads
+  int H, L;
+  float scale, scale_log2;  // scale, scale * log2 e
+};
+
+// Warpgroups of a block: at 64 < L <= 128 one block holds both query
+// blocks of a head; otherwise one, and a cluster of C blocks owns a head.
+template <int C>
+__host__ __device__ constexpr int warpgroups() { return C == 2 ? 2 : 1; }
+
+// Shared memory: K and V (64 C rows each) and, per warpgroup, its Q and dO
+// rows and per key tile the P hi, P lo, dS hi and dS lo tiles (64 x 64 each).
+template <int DH, int C>
+constexpr size_t smem_bytes() {
+  return sizeof(bf16) * (2 * (size_t)kTile * C * DH +
+                         warpgroups<C>() * (2 * (size_t)kTile * DH + (size_t)C * 4 * kTileElems));
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Named barriers: `id` (1 .. 15) over `n` threads of the block.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// (x0, x1) -> bf16 pairs hi = bf16(x) and lo = bf16(x - hi), 16 significant
+// bits of each x between them, at dst and dst + lo_off.
+__device__ __forceinline__ void put_split(bf16* dst, int lo_off, float x0, float x1) {
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+  *reinterpret_cast<__nv_bfloat162*>(dst) = hi;
+  *reinterpret_cast<__nv_bfloat162*>(dst + lo_off) =
+      __floats2bfloat162_rn(x0 - __low2float(hi), x1 - __high2float(hi));
+}
+
+template <int DH, int C>
+__global__ void __launch_bounds__(kWgThreads * warpgroups<C>(), C == 1 ? 2 : 1)
+    bwd_kernel(const Params p) {
+  constexpr int WG = warpgroups<C>();
+  constexpr int CL = C / WG;     // blocks of a cluster
+  constexpr int kThreads = kWgThreads * WG;
+  constexpr int NC = DH / 8;     // 16-byte chunks of a staged row
+  constexpr int KS = DH / 16;    // k-steps of Q K^T and dO V^T
+  constexpr int NA = DH / 2;     // accumulators a thread holds of a (64, DH) product
+  constexpr int Lk = kTile * C;  // keys staged (zeros past L)
+  constexpr bool kDpResident = C <= 2;
+  constexpr uint32_t kRowLbo = NC * 128;  // bytes between 8-row groups of a staged operand
+  constexpr int kOutRow = DH + 8;  // elements of an output row in shared memory (no bank conflicts)
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + Lk * DH;
+  bf16* sQs = sV + Lk * DH;            // the block's Q rows, warpgroup w's from row 64 w
+  bf16* sOs = sQs + WG * kTile * DH;   // its dO rows, likewise
+  bf16* sPSs = sOs + WG * kTile * DH;  // warpgroup w, key tile t, operand o (P hi, P lo,
+                                       // dS hi, dS lo) at ((w C + t) 4 + o) tiles
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, wg = tid / kWgThreads, wtid = tid % kWgThreads;
+  const int warp = wtid >> 5, lane = tid & 31, g = lane >> 2, tg = lane & 3;
+  const int L = p.L, qb = rank * WG + wg, q0 = qb * kTile;  // this warpgroup's query block
+  bf16* sQ = sQs + wg * kTile * DH;
+  bf16* sO = sOs + wg * kTile * DH;
+  bf16* sPS = sPSs + wg * C * 4 * kTileElems;
+  // Element offset of head bh in tensor t.
+  auto at = [&](long long bh, int t) {
+    const long long b = bh / p.H;
+    return b * p.st[t][0] + (bh - b * p.H) * p.st[t][1];
+  };
+  // Barrier of this warpgroup's threads.
+  auto wg_sync = [&]() {
+    if constexpr (WG == 1) {
+      __syncthreads();
+    } else {
+      bar_sync(1 + wg, kWgThreads);
+    }
+  };
+
+  // Rows r0 .. r0 + rows - 1 of one head into core matrices, zeros past L.
+  auto stage = [&](bf16* dst, const bf16* src, long long rs, int r0, int rows) {
+    for (int idx = tid; idx < rows * NC; idx += kThreads) {
+      const int r = idx / NC, c = idx - r * NC, row = r0 + r;
+      cp_async16(dst + core_at(r, 8 * c, NC), src + (row < L ? row : 0) * rs + 8 * c, row < L);
+    }
+  };
+  // This warpgroup's 64 rows of one head, likewise.
+  auto stage_wg = [&](bf16* dst, const bf16* src, long long rs) {
+    for (int idx = wtid; idx < kTile * NC; idx += kWgThreads) {
+      const int r = idx / NC, c = idx - r * NC, row = q0 + r;
+      cp_async16(dst + core_at(r, 8 * c, NC), src + (row < L ? row : 0) * rs + 8 * c, row < L);
+    }
+  };
+  // Without a cluster a block is persistent: it walks the heads bh =
+  // blockIdx.x, + gridDim.x, ..., and stages the next head's K and V once
+  // its dQ is done with them, and its Q and dO rows once its key tiles are.
+  const long long stride = gridDim.x / CL;
+  for (long long bh = blockIdx.x / CL; bh < p.BH; bh += stride) {
+    const bool first = bh == blockIdx.x / CL, more = CL == 1 && bh + stride < p.BH;
+    if (first) {
+      // Group 0: the block's Q rows and K; group 1: its dO rows and V, which
+      // land while S is computed.
+      const int row0 = rank * WG * kTile;
+      stage(sQs, p.q + at(bh, 0), p.st[0][2], row0, WG * kTile);
+      stage(sK, p.k + at(bh, 1), p.st[1][2], 0, Lk);
+      cp_async_commit();
+      stage(sOs, p.dout + at(bh, 3), p.st[3][2], row0, WG * kTile);
+      stage(sV, p.v + at(bh, 2), p.st[2][2], 0, Lk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    // K-major operands of S and dP: this block's Q or dO rows (A) and the
+    // 64 keys of tile t (B), channels 16 ks .. 16 ks + 15.
+    auto rows_desc = [&](const bf16* x, int ks) {
+      return wgmma_desc(x + core_at(0, 16 * ks, NC), 128, kRowLbo);
+    };
+    auto keys_desc = [&](const bf16* x, int t, int ks) {
+      return wgmma_desc(x + core_at(kTile * t, 16 * ks, NC), 128, kRowLbo);
+    };
+    // dP for key tile t (accumulator layout; zeros in d on entry).
+    auto dp_tile = [&](float* d, int t) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) wgmma_ss64<0, 0>(d, rows_desc(sO, ks), keys_desc(sV, t, ks));
+    };
+
+    // S (and dP) of the block's 64 query rows against every key: a warp holds
+    // rows 16 warp + g and + 8, keys 64 t + 8 nt + 2 tg + {0, 1} at
+    // s[t][4 nt + {0, 1}] and s[t][4 nt + {2, 3}].
+    float s[C][32];
+    float dp[kDpResident ? C : 1][32];
+#pragma unroll
+    for (int t = 0; t < C; ++t)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[t][i] = 0.f;
+#pragma unroll
+    for (int t = 0; t < (kDpResident ? C : 1); ++t)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dp[t][i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < C; ++t)
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        wgmma_ss64<0, 0>(s[t], rows_desc(sQ, ks), keys_desc(sK, t, ks));
+    wgmma_commit();
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+    if constexpr (kDpResident) {
+#pragma unroll
+      for (int t = 0; t < C; ++t) dp_tile(dp[t], t);
+    }
+    wgmma_commit_and_wait();
+
+    // Exact softmax of the scaled scores: keys past L masked, the whole
+    // row's max, exp(scale (s - m)) as ex2(s c - m c), its sum, P = e / sum.
+    float ma = kNegMax, mb = kNegMax;
+#pragma unroll
+    for (int t = 0; t < C; ++t)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int key = kTile * t + 8 * nt + 2 * tg;
+        if (kTile * t + 8 * nt + 8 > L) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (key + e >= L) s[t][4 * nt + e] = s[t][4 * nt + 2 + e] = kNegMax;
+        }
+        ma = fmaxf(ma, fmaxf(s[t][4 * nt], s[t][4 * nt + 1]));
+        mb = fmaxf(mb, fmaxf(s[t][4 * nt + 2], s[t][4 * nt + 3]));
+      }
+    ma = quad_max(ma);
+    mb = quad_max(mb);
+    const float c = p.scale_log2, mca = -ma * c, mcb = -mb * c;
+    float pa[4] = {0.f, 0.f, 0.f, 0.f}, pb[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int t = 0; t < C; ++t)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[t][4 * nt + e] = exp2f(fmaf(s[t][4 * nt + e], c, mca));
+          s[t][4 * nt + 2 + e] = exp2f(fmaf(s[t][4 * nt + 2 + e], c, mcb));
+          pa[nt & 3] += s[t][4 * nt + e];
+          pb[nt & 3] += s[t][4 * nt + 2 + e];
+        }
+    const float ia = 1.f / quad_sum((pa[0] + pa[1]) + (pa[2] + pa[3]));
+    const float ib = 1.f / quad_sum((pb[0] + pb[1]) + (pb[2] + pb[3]));
+#pragma unroll
+    for (int t = 0; t < C; ++t)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        s[t][4 * nt] *= ia;
+        s[t][4 * nt + 1] *= ia;
+        s[t][4 * nt + 2] *= ib;
+        s[t][4 * nt + 3] *= ib;
+      }
+
+    // delta = rowsum(dP * P), from the f32 P and dP.
+    float da = 0.f, db = 0.f;
+#pragma unroll
+    for (int t = 0; t < C; ++t) {
+      float d1[kDpResident ? 1 : 32];
+      float* d = d1;
+      if constexpr (kDpResident) {
+        d = dp[t];
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) d1[i] = 0.f;
+        wgmma_fence();
+        dp_tile(d1, t);
+        wgmma_commit_and_wait();
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        da = fmaf(s[t][4 * nt], d[4 * nt], da);
+        da = fmaf(s[t][4 * nt + 1], d[4 * nt + 1], da);
+        db = fmaf(s[t][4 * nt + 2], d[4 * nt + 2], db);
+        db = fmaf(s[t][4 * nt + 3], d[4 * nt + 3], db);
+      }
+    }
+    da = quad_sum(da);
+    db = quad_sum(db);
+
+    // dS = P (dP - delta); P and dS split into bf16 hi + lo tiles in shared
+    // memory, rows as queries and 16-byte chunks as 8 keys.
+#pragma unroll
+    for (int t = 0; t < C; ++t) {
+      float d1[kDpResident ? 1 : 32];
+      float* d = d1;
+      if constexpr (kDpResident) {
+        d = dp[t];
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) d1[i] = 0.f;
+        wgmma_fence();
+        dp_tile(d1, t);
+        wgmma_commit_and_wait();
+      }
+      bf16* tile = sPS + 4 * t * kTileElems;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int off = core_at(16 * warp + g, 8 * nt + 2 * tg, 8);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {  // rows g, g + 8
+          const float delta = half ? db : da;
+          const int i0 = 4 * nt + 2 * half, o = off + half * 512;
+          const float p0 = s[t][i0], p1 = s[t][i0 + 1];
+          put_split(tile + o, kTileElems, p0, p1);
+          put_split(tile + 2 * kTileElems + o, kTileElems, p0 * (d[i0] - delta),
+                    p1 * (d[i0 + 1] - delta));
+        }
+      }
+    }
+    fence_proxy_async();
+    wg_sync();
+
+    // dQ = scale * dS K: A = dS hi / lo (K-major: queries x keys), B = K
+    // (MN-major: keys x channels), 16 keys a step.
+    // A (64, DH) accumulator times `scale` to bf16 rows of kOutRow elements in
+    // shared memory (rows 16 warp + g and + 8, channels 8 nt + 2 tg + {0, 1}),
+    // and those rows to the tensor: rows r0 .. r0 + 63 below L, 16 bytes a copy.
+    auto put_rows = [&](bf16* dst, const float* a, float scale) {
+#pragma unroll
+      for (int nt = 0; nt < NA / 4; ++nt) {
+        bf16* row = dst + (16 * warp + g) * kOutRow + 8 * nt + 2 * tg;
+        *reinterpret_cast<__nv_bfloat162*>(row) =
+            __floats2bfloat162_rn(a[4 * nt] * scale, a[4 * nt + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * kOutRow) =
+            __floats2bfloat162_rn(a[4 * nt + 2] * scale, a[4 * nt + 3] * scale);
+      }
+    };
+    auto store_rows = [&](bf16* dst, long long rs, const bf16* src, int r0) {
+#pragma unroll
+      for (int idx = wtid; idx < kTile * NC; idx += kWgThreads) {
+        const int r = idx / NC, c = idx - r * NC;
+        if (r0 + r < L)
+          *reinterpret_cast<uint4*>(dst + (r0 + r) * rs + 8 * c) =
+              *reinterpret_cast<const uint4*>(src + r * kOutRow + 8 * c);
+      }
+    };
+    {
+      float acc[NA];
+#pragma unroll
+      for (int i = 0; i < NA; ++i) acc[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < C; ++t)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const uint64_t kd = wgmma_desc(sK + core_at(kTile * t + 16 * u, 0, NC), kRowLbo, 128);
+#pragma unroll
+          for (int w = 2; w < 4; ++w)
+            wgmma_ss<DH, 0, 1>(
+                acc, wgmma_desc(sPS + (4 * t + w) * kTileElems + core_at(0, 16 * u, 8), 128, 1024),
+                kd);
+        }
+      wgmma_commit_and_wait();
+      // K and V are no longer read (by either warpgroup): dQ goes through
+      // them to whole-row stores.
+      __syncthreads();
+      put_rows(sK + wg * kTile * kOutRow, acc, p.scale);
+      wg_sync();
+      store_rows(p.dq + at(bh, 4), p.st[4][2], sK + wg * kTile * kOutRow, q0);
+    }
+    if (more) {  // the next head's K and V, once both warpgroups' dQ rows have left
+      __syncthreads();
+      stage(sK, p.k + at(bh + stride, 1), p.st[1][2], 0, Lk);
+      stage(sV, p.v + at(bh + stride, 2), p.st[2][2], 0, Lk);
+      cp_async_commit();
+    }
+
+    // Partial dV = P^T dO and dK = dS^T Q of key tile t over this block's
+    // queries: A = P or dS hi / lo read MN-major (keys x queries), B = dO or
+    // Q (MN-major: queries x channels), 16 queries a step.
+    float dv[NA], dk[NA];
+    auto key_tile = [&](int t) {
+#pragma unroll
+      for (int i = 0; i < NA; ++i) dv[i] = dk[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const uint64_t od = wgmma_desc(sO + core_at(16 * u, 0, NC), kRowLbo, 128);
+        const uint64_t qd = wgmma_desc(sQ + core_at(16 * u, 0, NC), kRowLbo, 128);
+#pragma unroll
+        for (int w = 0; w < 4; ++w)
+          wgmma_ss<DH, 1, 1>(
+              w < 2 ? dv : dk,
+              wgmma_desc(sPS + (4 * t + w) * kTileElems + core_at(16 * u, 0, 8), 1024, 128),
+              w < 2 ? od : qd);
+      }
+      wgmma_commit_and_wait();
+    };
+    // The other query blocks' key tiles first, each partial left in the
+    // shared memory of that tile's P and dS (no longer read); the own last.
+    // The owner of key tile t (warpgroup t of the head) adds the partials in
+    // the order of the query blocks: from the other warpgroup of the block
+    // (L <= 128, named barriers 3 and 4: "warpgroup w's partials are in
+    // place") or from the other blocks of the cluster (distributed shared
+    // memory, cluster barriers).
+    for (int i = 1; i < C; ++i) {
+      const int t = (qb + i) % C;
+      key_tile(t);
+      wg_sync();  // the products of tile t are done with its P and dS
+      float4* slot = reinterpret_cast<float4*>(sPS + 4 * t * kTileElems);
+#pragma unroll
+      for (int j = 0; j < NA / 4; ++j) {
+        slot[j * kWgThreads + wtid] =
+            make_float4(dv[4 * j], dv[4 * j + 1], dv[4 * j + 2], dv[4 * j + 3]);
+        slot[(NA / 4 + j) * kWgThreads + wtid] =
+            make_float4(dk[4 * j], dk[4 * j + 1], dk[4 * j + 2], dk[4 * j + 3]);
+      }
+    }
+    if constexpr (CL > 1) {
+      cluster_arrive();
+    } else if constexpr (WG > 1) {
+      __threadfence_block();
+      bar_arrive(3 + wg, 2 * kWgThreads);
+    }
+    key_tile(qb);
+    if (more) {  // the next head's Q and dO rows of this warpgroup
+      stage_wg(sQ, p.q + at(bh + stride, 0), p.st[0][2]);
+      stage_wg(sO, p.dout + at(bh + stride, 3), p.st[3][2]);
+      cp_async_commit();
+    }
+    if constexpr (C > 1) {
+      if constexpr (CL > 1) {
+        cluster_wait();
+      } else {
+        bar_sync(3 + (1 - wg), 2 * kWgThreads);
+      }
+      for (int r = 0; r < C; ++r) {
+        if (r == qb) continue;
+        const float4* src =
+            reinterpret_cast<const float4*>(sPSs + ((r % WG) * C + qb) * 4 * kTileElems);
+        if constexpr (CL > 1) src = cluster.map_shared_rank(src, r / WG);
+#pragma unroll
+        for (int j = 0; j < NA / 4; ++j) {
+          const float4 x = src[j * kWgThreads + wtid], y = src[(NA / 4 + j) * kWgThreads + wtid];
+          dv[4 * j] += x.x; dv[4 * j + 1] += x.y; dv[4 * j + 2] += x.z; dv[4 * j + 3] += x.w;
+          dk[4 * j] += y.x; dk[4 * j + 1] += y.y; dk[4 * j + 2] += y.z; dk[4 * j + 3] += y.w;
+        }
+      }
+      if constexpr (CL > 1) cluster_arrive();  // done reading the other blocks' shared memory
+    }
+    // The own key tile's P and dS are no longer read (and nobody else reads
+    // them): dK and dV go through them to whole-row stores.
+    bf16* out = sPS + 4 * qb * kTileElems;
+    wg_sync();
+    put_rows(out, dk, p.scale);
+    put_rows(out + kTile * kOutRow, dv, 1.f);
+    wg_sync();
+    store_rows(p.dk + at(bh, 5), p.st[5][2], out, q0);
+    store_rows(p.dv + at(bh, 6), p.st[6][2], out + kTile * kOutRow, q0);
+    if constexpr (CL > 1) cluster_wait();  // no block leaves while another reads its shared memory
+  }
+}
+
+template <int DH, int C>
+int launch_bf16(const Params& p, long long BH, cudaStream_t stream) {
+  constexpr size_t bytes = smem_bytes<DH, C>();
+  constexpr int CL = C / warpgroups<C>();
+  cudaError_t err = cudaFuncSetAttribute(bwd_kernel<DH, C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  long long blocks = BH * CL;
+  if constexpr (CL == 1) {  // persistent: as many blocks as fit on the card at once
+    static int resident = 0;  // blocks of this instantiation the card holds at once
+    if (resident == 0) {
+      int dev = 0, sms = 0, per_sm = 0;
+      if (cudaGetDevice(&dev) == cudaSuccess &&
+          cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess &&
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bwd_kernel<DH, C>,
+                                                        kWgThreads * warpgroups<C>(),
+                                                        bytes) == cudaSuccess)
+        resident = sms * per_sm;
+    }
+    if (resident > 0 && resident < blocks) blocks = resident;
+  }
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(kWgThreads * warpgroups<C>());
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, bwd_kernel<DH, C>, p);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+int launch_bf16(const Params& p, long long BH, cudaStream_t stream) {
+  switch ((p.L + kTile - 1) / kTile) {
+    case 1: return launch_bf16<DH, 1>(p, BH, stream);
+    case 2: return launch_bf16<DH, 2>(p, BH, stream);
+    case 3: return launch_bf16<DH, 3>(p, BH, stream);
+    default: return launch_bf16<DH, 4>(p, BH, stream);
+  }
+}
+
+inline bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0; }
+
 }  // namespace
 
 extern "C" {
@@ -404,25 +928,47 @@ extern "C" {
 // Returns a cudaError_t code (0 = launched). q, k, v, dout, dq, dk, dv are
 // (B, H, L, DH) tensors of one type (dtype 0: f32, 1: bf16) with unit
 // channel stride and the (batch, head, row) strides in `strides` (7 x 3
-// elements, in that tensor order). stats: B*H*L*3 f32 scratch. All memory is
-// allocated by the caller; the launches are asynchronous on `stream`.
+// elements, in that tensor order); bf16 needs strides that are multiples
+// of 8 and 16-byte aligned pointers. stats: B*H*L*3 f32 scratch for f32
+// operands (the two f32 passes), unused (may be null) for bf16. All memory
+// is allocated by the caller; the launches are asynchronous on `stream`.
 int parseq_flash_bwd(const void* q, const void* k, const void* v, const void* dout, void* dq,
                      void* dk, void* dv, void* stats, const long long* strides, int B, int H,
                      int L, int DH, int dtype, float scale, void* stream) {
-  if (B < 1 || B > 65535 || H < 1 || H > 65535 || L < 1 || L > kMaxL) return (int)cudaErrorInvalidValue;
-  Params p;
+  if (B < 1 || H < 1 || L < 1 || L > kMaxL || (DH != 32 && DH != 64))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    long long any = 0;
+    for (int i = 0; i < 21; ++i) any |= strides[i];
+    if (any & 7) return (int)cudaErrorInvalidValue;
+    const void* ptrs[7] = {q, k, v, dout, dq, dk, dv};
+    for (const void* ptr : ptrs)
+      if (!aligned16(ptr)) return (int)cudaErrorMisalignedAddress;
+    if ((long long)B * H * ((L + kTile - 1) / kTile) > 0x7fffffffLL)
+      return (int)cudaErrorInvalidConfiguration;
+    Params p;
+    p.q = static_cast<const bf16*>(q); p.k = static_cast<const bf16*>(k);
+    p.v = static_cast<const bf16*>(v); p.dout = static_cast<const bf16*>(dout);
+    p.dq = static_cast<bf16*>(dq); p.dk = static_cast<bf16*>(dk); p.dv = static_cast<bf16*>(dv);
+    for (int t = 0; t < 7; ++t)
+      for (int e = 0; e < 3; ++e) p.st[t][e] = strides[t * 3 + e];
+    p.BH = (long long)B * H;
+    p.H = H;
+    p.L = L;
+    p.scale = scale;
+    p.scale_log2 = scale * kLog2e;
+    return DH == 32 ? launch_bf16<32>(p, p.BH, s) : launch_bf16<64>(p, p.BH, s);
+  }
+  if (dtype != 0 || B > 65535 || H > 65535 || stats == nullptr) return (int)cudaErrorInvalidValue;
+  fp32::Params p;
   p.q = q; p.k = k; p.v = v; p.dout = dout; p.dq = dq; p.dk = dk; p.dv = dv;
   p.stats = static_cast<float*>(stats);
   for (int t = 0; t < 7; ++t)
     for (int e = 0; e < 3; ++e) p.st[t][e] = strides[t * 3 + e];
   p.B = B; p.H = H; p.L = L;
   p.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && DH == 32) return launch<float, 32>(p, s);
-  if (dtype == 0 && DH == 64) return launch<float, 64>(p, s);
-  if (dtype == 1 && DH == 32) return launch<bf16, 32>(p, s);
-  if (dtype == 1 && DH == 64) return launch<bf16, 64>(p, s);
-  return (int)cudaErrorInvalidValue;
+  return DH == 32 ? fp32::launch<float, 32>(p, s) : fp32::launch<float, 64>(p, s);
 }
 
 int parseq_flash_bwd_max_len() { return kMaxL; }
@@ -432,3 +978,4 @@ const char* parseq_flash_bwd_error_string(int code) {
 }
 
 }  // extern "C"
+

@@ -1,12 +1,12 @@
 """Build-on-first-use for the port's CUDA kernels (nvcc -> .so -> ctypes).
 
 Each kernel library is one or more `csrc/*.cu` files with a plain C entry
-point, compiled with
+point (they may include the shared headers `csrc/*.cuh`), compiled with
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC -Icsrc
 
 into `build/kernels/lib<name>.so` at the repository root (listed in
-.gitignore). A sha256 of the sources and the command is kept in a
+.gitignore). A sha256 of the sources, the headers and the command is kept in a
 `<so>.srchash` sidecar, and the library is rebuilt whenever the sidecar
 is missing or differs: content hashing, not mtimes, because a fresh
 checkout sets every mtime. Concurrent first builds compile to a pid-unique
@@ -31,7 +31,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC')
+              '-shared', '-Xcompiler', '-fPIC', f'-I{CSRC}')
 
 
 class KernelBuildError(RuntimeError):
@@ -56,8 +56,10 @@ def find_nvcc() -> str:
 
 
 def _build_hash(sources, cmd) -> str:
+    """sha256 of the sources, the headers under csrc/ they may include, and
+    the command."""
     h = hashlib.sha256()
-    for s in sources:
+    for s in [*sources, *sorted(CSRC.glob('*.cuh'))]:
         h.update(s.name.encode() + b'\0' + s.read_bytes())
     h.update('\0'.join(cmd).encode())
     return h.hexdigest()

@@ -39,7 +39,11 @@ def save_checkpoint(path, state_dict, config=None, meta=None):
 
 def load_checkpoint(path):
     """-> (state_dict, config_dict or None, meta_dict)."""
-    payload = torch.load(path, map_location='cpu', weights_only=True)
+    return read_payload(torch.load(path, map_location='cpu', weights_only=True))
+
+
+def read_payload(payload):
+    """A loaded checkpoint payload -> (state_dict, config_dict or None, meta_dict)."""
     config = json.loads(payload['config']) if payload.get('config') else None
     return payload['state_dict'], config, json.loads(payload.get('meta') or '{}')
 

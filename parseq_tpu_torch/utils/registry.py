@@ -211,29 +211,64 @@ def create_model(experiment: str, *, seed: int = 0, dtype=torch.bfloat16, device
 def load_from_checkpoint(path: str, *, dtype=torch.bfloat16, device='cuda', config_root=None,
                          **kwargs) -> ModelBundle:
     """Load a model from
-    - a checkpoint the port's trainer wrote (`.ckpt`, utils/checkpoint.py):
-      its stored model config builds the model; or
-    - a reference PyTorch `.pt` state_dict (model family from the file name;
-      a Lightning 'state_dict' wrapper and 'model.' prefixes are stripped)."""
-    if path.endswith('.ckpt'):
-        from parseq_tpu_torch.utils.checkpoint import load_checkpoint
+    - `pretrained=<experiment>`: the released weights of the experiment,
+      resolved offline from the checksum cache (utils/pretrained.py);
+    - a checkpoint the port's trainer wrote (utils/checkpoint.py; a dict
+      of 'state_dict', 'config' and 'meta'): its stored model config
+      builds the model; or
+    - any other PyTorch file (`.pt` or `.ckpt`), a reference state_dict:
+      the model family from the file name, a Lightning 'state_dict' wrapper
+      and 'model.' prefixes stripped."""
+    if path.startswith('pretrained='):
+        from parseq_tpu_torch.utils.pretrained import load_pretrained
 
-        sd, _, meta = load_checkpoint(path)
+        return load_pretrained(path.split('=', 1)[1], dtype=dtype, device=device,
+                               config_root=config_root, **kwargs)
+    if not (path.endswith('.pt') or _looks_like_torch(path)):
+        raise NotImplementedError(
+            f'{path}: the port loads its own .ckpt checkpoints and reference PyTorch .pt / .ckpt '
+            'files; the JAX package\'s msgpack checkpoints are queued in ROADMAP.md')
+    obj = torch.load(path, map_location='cpu', weights_only=True)
+    if _is_port_checkpoint(obj):
+        from parseq_tpu_torch.utils.checkpoint import read_payload
+
+        sd, _, meta = read_payload(obj)
         model_cfg = dict(meta.get('model_config') or {})
         model_cfg.update(kwargs)
         name = meta.get('name') or model_cfg.get('name') or 'parseq'
         return _bundle(name, model_cfg, dtype=dtype, device=device, state_dict=sd)
-    if not path.endswith('.pt'):
-        raise NotImplementedError(
-            f'{path}: the port loads its own .ckpt checkpoints and reference PyTorch .pt '
-            'files; the JAX package\'s msgpack checkpoints are queued in ROADMAP.md')
-    obj = torch.load(path, map_location='cpu', weights_only=True)
+    return _from_reference(obj, _family(os.path.basename(path).lower()), dtype=dtype,
+                           device=device, config_root=config_root, **kwargs)
+
+
+def _from_reference(obj, experiment, *, dtype=torch.bfloat16, device='cuda', config_root=None,
+                    **kwargs):
+    """Build `experiment` (its composed config, e.g. parseq-tiny's 192-dim
+    geometry) with the reference state_dict `obj` (bare or Lightning-wrapped)."""
     if isinstance(obj, dict) and 'state_dict' in obj:
         obj = obj['state_dict']
     if any(k.startswith('model.') for k in obj):
         obj = {k.removeprefix('model.'): v for k, v in obj.items() if k.startswith('model.')}
-    name = _family(os.path.basename(path).lower())
-    full = config_lib.compose(name, config_root=config_root)
+    full = config_lib.compose(experiment, config_root=config_root)
     model_cfg = dict(full['model'])
     model_cfg.update(kwargs)
-    return _bundle(name, model_cfg, dtype=dtype, device=device, state_dict=obj)
+    return _bundle(experiment, model_cfg, dtype=dtype, device=device, state_dict=obj)
+
+
+def _is_port_checkpoint(obj) -> bool:
+    """A payload of utils/checkpoint.py: 'state_dict', 'config' and 'meta',
+    the last two JSON strings (a Lightning file's 'state_dict' has no such
+    siblings)."""
+    return (isinstance(obj, dict) and {'state_dict', 'config', 'meta'} <= set(obj)
+            and isinstance(obj['config'], str) and isinstance(obj['meta'], str))
+
+
+def _looks_like_torch(path: str) -> bool:
+    """A torch.save file: a zip archive, or the legacy pickle's protocol 2
+    header (parseq_tpu/utils/registry.py:_looks_like_torch)."""
+    try:
+        with open(path, 'rb') as f:
+            magic = f.read(4)
+        return magic[:2] == b'PK' or magic == b'\x80\x02'.ljust(4, b'\x00')[:4]
+    except OSError:
+        return False

@@ -136,10 +136,155 @@ def test_kernel_shape_guard_raises(shape, dtype):
         flash_bwd.attention_flashbwd_backward(t, t, t, t, 0.1, t, t, t)
 
 
+@pytest.mark.parametrize('scale', [0.0, -0.125])
+def test_kernel_scale_guard_raises(scale):
+    """The bf16 kernel takes the row max of the unscaled scores, which is
+    the max of the scaled ones only for scale > 0."""
+    t = torch.empty(1, 1, 16, 64, dtype=torch.bfloat16, device='meta')
+    with pytest.raises(ValueError, match='scale > 0'):
+        flash_bwd.attention_flashbwd_backward(t, t, t, t, scale, t, t, t)
+
+
 def test_other_devices_raise():
     t = torch.empty(1, 1, 16, 64, device='meta')
     with pytest.raises(ValueError, match='unsupported device'):
         flash_bwd.attention_flashbwd_backward(t, t, t, t, 0.1, t, t, t)
+
+
+# The card check's inputs and limits (flash_bwd.check_operands,
+# CHECK_LIMITS), shared with chip_smoke.py, exercised on the CPU: faults
+# planted in the plain version (flash_bwd._grads, monkeypatched) fail it,
+# and what a right kernel computes passes it.
+GRADS = flash_bwd._grads
+CHECK_SHAPE = (8, 6, 128, 64)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _hi_lo(x):
+    hi = _bf16(x)
+    return hi + _bf16(x - hi)
+
+
+def _kernel_like(split):
+    """The kernel's arithmetic: scores and dP as f64 sums rounded to f32, exp
+    as ex2, P normalised by a multiply, and P and dS passed through `split`
+    before the three products that take them."""
+    def grads(q, k, v, do, scale):
+        s = (q.double() @ k.double().transpose(-1, -2)).float()
+        e = torch.exp2((s - s.amax(-1, keepdim=True)) * (scale * 1.4426950408889634))
+        p = e * (1.0 / e.sum(-1, keepdim=True))
+        dp = (do.double() @ v.double().transpose(-1, -2)).float()
+        ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+        p, ds = split(p).double(), split(ds).double()
+        dv = (p.transpose(-1, -2) @ do.double()).float()
+        dq = (ds @ k.double()).float() * scale
+        dk = (ds.transpose(-1, -2) @ q.double()).float() * scale
+        return dq, dk, dv
+    return grads
+
+
+def _float64(q, k, v, do, scale):
+    return tuple(g.float() for g in GRADS(q.double(), k.double(), v.double(), do.double(), scale))
+
+
+def _uniform_p(q, k, v, do, scale):
+    return GRADS(torch.zeros_like(q), k, v, do, scale)
+
+
+def _delta_dropped(q, k, v, do, scale):
+    p = torch.softmax((q @ k.transpose(-1, -2)) * scale, dim=-1)
+    ds = p * (do @ v.transpose(-1, -2))
+    return (ds @ k) * scale, (ds.transpose(-1, -2) @ q) * scale, p.transpose(-1, -2) @ do
+
+
+def _other_heads_keys(q, k, v, do, scale):
+    return GRADS(q, k.roll(1, dims=-3), v, do, scale)
+
+
+def _last_8_keys_masked(q, k, v, do, scale):
+    s = (q @ k.transpose(-1, -2)) * scale
+    s[..., -8:] = -math.inf
+    p = torch.softmax(s, dim=-1)
+    dp = do @ v.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    return (ds @ k) * scale, (ds.transpose(-1, -2) @ q) * scale, p.transpose(-1, -2) @ do
+
+
+def _check_case(dtype=torch.bfloat16):
+    gen = torch.Generator().manual_seed(11)
+    *operands, _, _, _, scale = flash_bwd.check_operands(*CHECK_SHAPE, gen, dtype)
+    return operands, scale
+
+
+def test_check_operands_spread_scores():
+    """Scores spread by about CHECK_SCORE_STD; q, k, v are views of one packed
+    projection, the outputs views of one packed gradient."""
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, do, dq, dk, dv, scale = flash_bwd.check_operands(2, 6, 128, 64, gen, torch.float32)
+    assert scale == 0.125 and q.stride() == (128 * 3 * 384, 64, 3 * 384, 1)
+    assert k.data_ptr() == q.data_ptr() + 384 * 4 and dv.data_ptr() == dk.data_ptr() + 384 * 4
+    assert do.shape == dq.shape == (2, 6, 128, 64) and do.is_contiguous()
+    spread = float(((q @ k.transpose(-1, -2)) * scale).std(-1).mean())
+    assert 0.9 * flash_bwd.CHECK_SCORE_STD < spread < 1.1 * flash_bwd.CHECK_SCORE_STD
+    assert 0.95 < float(v.std()) < 1.05 and 0.95 < float(do.std()) < 1.05
+    assert flash_bwd.check_operands(1, 1, 8, 32, gen)[0].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize('fault', [_uniform_p, _delta_dropped, _other_heads_keys,
+                                   _last_8_keys_masked, _kernel_like(_bf16)],
+                         ids=['uniform_p', 'delta_dropped', 'other_heads_keys',
+                              'last_8_keys_masked', 'p_and_ds_rounded_once_to_bf16'])
+def test_check_limits_catch_planted_faults(monkeypatch, fault):
+    """A plain version with a planted fault fails the card check against the
+    right one, in bf16 at (8, 6, 128, 64): by more than twice the max limit
+    or twice the mean limit in at least one of dq, dk, dv."""
+    operands, scale = _check_case()
+    want = flash_bwd.attention_flashbwd_backward_reference(*operands, scale)
+    monkeypatch.setattr(flash_bwd, '_grads', fault)
+    bad = flash_bwd.attention_flashbwd_backward_reference(*operands, scale)
+    errs = flash_bwd.check_errors(bad, want)
+    limit_max, limit_mean = flash_bwd.CHECK_LIMITS[torch.bfloat16]
+    print(f'{fault.__name__}: relative max / mean {errs}')
+    assert not flash_bwd.check_passes(bad, want)
+    assert any(m > 2 * limit_max or a > 2 * limit_mean for m, a in errs)
+
+
+@pytest.mark.parametrize('right', [_float64, _kernel_like(_hi_lo)], ids=['float64', 'hi_lo'])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32], ids=['bf16', 'f32'])
+def test_check_limits_pass_what_the_kernel_computes(monkeypatch, right, dtype):
+    """A float64 version, and the kernel's arithmetic with P and dS split into
+    bf16 hi + lo, pass the check with the mean at most a tenth of its limit
+    (f32 operands: the hi + lo split is not what the f32 kernel does, so
+    only the float64 version is held to the f32 limits)."""
+    if dtype == torch.float32 and right is not _float64:
+        right = _kernel_like(lambda x: x)
+    operands, scale = _check_case(dtype)
+    want = flash_bwd.attention_flashbwd_backward_reference(*operands, scale)
+    monkeypatch.setattr(flash_bwd, '_grads', right)
+    got = flash_bwd.attention_flashbwd_backward_reference(*operands, scale)
+    limit_max, limit_mean = flash_bwd.CHECK_LIMITS[dtype]
+    errs = flash_bwd.check_errors(got, want)
+    assert flash_bwd.check_passes(got, want), errs
+    assert all(a <= limit_mean / 10 for _, a in errs)
+
+
+def test_build_hash_covers_shared_headers(tmp_path, monkeypatch):
+    """A kernel library is rebuilt when a header under csrc/ that its
+    sources may include (csrc/hopper.cuh) changes, not only its sources."""
+    from parseq_tpu_torch.kernels import build
+
+    assert (build.CSRC / 'hopper.cuh').is_file()
+    assert f'-I{build.CSRC}' in build.NVCC_FLAGS
+    monkeypatch.setattr(build, 'CSRC', tmp_path)
+    src, header = tmp_path / 'k.cu', tmp_path / 'shared.cuh'
+    src.write_text('#include "shared.cuh"\n')
+    header.write_text('// one\n')
+    first = build._build_hash([src], ['nvcc'])
+    header.write_text('// two\n')
+    assert build._build_hash([src], ['nvcc']) != first
 
 
 @pytest.fixture
@@ -149,27 +294,34 @@ def cuda_device():
     return torch.device('cuda')
 
 
+# The shapes of the card check: every length class of the kernel (one key
+# tile, ragged tiles, PARSeq-S's 128, one past it, a ragged last tile of a
+# 4-block cluster, the longest), both head widths, B = 1, 7, 48, head counts
+# other than 6 and the whole training batch.
+GPU_CASES = ([(B, 6, L, 64) for L in (8, 16, 120, 128, 136, 200, 256) for B in (1, 7, 48)]
+             + [(B, 6, L, 32) for L in (8, 120, 136, 200, 256) for B in (1, 7)]
+             + [(3, 2, 24, 32), (2, 3, 256, 64), (2, 3, 200, 64), (5, 1, 200, 32),
+                (384, 6, 128, 64)])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize('B,h,L,dh', [(48, 6, 128, 64), (3, 2, 24, 32), (2, 3, 256, 64),
-                                      (5, 1, 200, 32)])
+@pytest.mark.parametrize('B,h,L,dh', GPU_CASES)
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 def test_cuda_kernel_matches_plain(cuda_device, B, h, L, dh, dtype):
-    """bf16: outputs rounded to bf16, f32 sums in another order (2^-6 of the
-    largest reference value); f32: 1e-5 of it."""
+    """Within CHECK_LIMITS of the plain version on the check's inputs; bf16
+    strided (views of the packed projection and gradient) and contiguous
+    operands give the same bits."""
     gen = torch.Generator(device=cuda_device).manual_seed(L)
-    D = h * dh
-    qkv = torch.randn(B, L, 3 * D, generator=gen, device=cuda_device).to(dtype)
-    parts = [flash_bwd.split_heads(qkv[..., i * D:(i + 1) * D], h) for i in range(3)]
-    do = torch.randn(B, h, L, dh, generator=gen, device=cuda_device).to(dtype)
-    grad = torch.empty_like(qkv)
-    outs = [flash_bwd.split_heads(grad[..., i * D:(i + 1) * D], h) for i in range(3)]
+    q, k, v, do, dq, dk, dv, scale = flash_bwd.check_operands(B, h, L, dh, gen, dtype)
     before = flash_bwd.launches
-    flash_bwd.attention_flashbwd_backward(*parts, do, dh ** -0.5, *outs)
+    flash_bwd.attention_flashbwd_backward(q, k, v, do, scale, dq, dk, dv)
     torch.cuda.synchronize()
     assert flash_bwd.launches == before + 1
-    tol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-5
-    for got, want in zip(outs, flash_bwd.attention_flashbwd_backward_reference(
-            *parts, do, dh ** -0.5)):
-        assert got.dtype == dtype
-        err = float((got.float() - want.float()).abs().max())
-        assert err <= tol * float(want.float().abs().max())
+    got = (dq, dk, dv)
+    want = flash_bwd.attention_flashbwd_backward_reference(q, k, v, do, scale)
+    assert flash_bwd.check_passes(got, want), flash_bwd.check_errors(got, want)
+    if dtype == torch.bfloat16:
+        same = [torch.empty_like(dq) for _ in range(3)]
+        flash_bwd.attention_flashbwd_backward(q.contiguous(), k.contiguous(), v.contiguous(), do,
+                                              scale, *same)
+        assert all(torch.equal(a, b) for a, b in zip(got, same))
