@@ -30,7 +30,8 @@ from a seed), in phases, each printing its result:
      wiring check: both backwards are that autograd); B2's gradients
      likewise under autograd at ViTSTR's (197, 6, 384); B5 (all
      encoder blocks) at PARSeq-S's full geometry, depth 12, B = 1, 7, 256
-     (and depth 1), on weights where attention decides the output, its
+     (and depth 1, and L = 64 and 65 at B = 7: one or both warpgroups of a
+     block hold rows), on weights where attention decides the output, its
      difference held relative to what the blocks add to their input, its
      launch count set to 0 before and risen after, and against the port's
      eager blocks as information;
@@ -442,9 +443,9 @@ def main():
     blocks = enc_bench.make_blocks(B5_DEPTH, SEED).to(dev)
     b5_ops = {depth: encoder_kernel.stack_block_params(blocks[:depth]) for depth in (1, B5_DEPTH)}
     with torch.inference_mode():
-        for depth, B in ((1, 7), *((B5_DEPTH, B) for B in BATCHES)):
-            x = torch.randn(B, enc_bench.L, enc_bench.D, generator=gen, device=dev).to(
-                torch.bfloat16)
+        for depth, B, L in ((1, 7, enc_bench.L), *((B5_DEPTH, B, enc_bench.L) for B in BATCHES),
+                            (B5_DEPTH, 7, 64), (B5_DEPTH, 7, 65)):
+            x = torch.randn(B, L, enc_bench.D, generator=gen, device=dev).to(torch.bfloat16)
             encoder_kernel.launches = 0
             got = encoder_kernel.fused_encoder_blocks(b5_ops[depth], x, num_heads=B5_HEADS)
             torch.cuda.synchronize()
@@ -456,16 +457,17 @@ def main():
             limit_max, limit_mean = enc_bench.B5_LIMITS[depth]
             if not (got.shape == x.shape and torch.isfinite(got.float()).all()
                     and rel_max <= limit_max and rel_mean <= limit_mean):
-                raise AssertionError(f'B5 depth {depth} B={B} disagrees with its plain version: '
+                raise AssertionError(f'B5 depth {depth} B={B} L={L} disagrees with its plain version: '
                                      f'|diff| relative to what the blocks add: max {rel_max} '
                                      f'(limit {limit_max}), mean {rel_mean} (limit {limit_mean})')
             if depth == B5_DEPTH:
                 b5_err = max(b5_err, err)
-            msg = (f'B5 (L, D, heads, MLP)=(128, 384, 6, 1536) depth {depth} B={B}: launches 1, '
+            msg = (f'B5 (L, D, heads, MLP)=({L}, 384, 6, 1536) depth {depth} B={B}: launches 1, '
                    f'max_abs_err={err:.3e}; |diff| relative to what the blocks add (max '
                    f'{float((want.float() - x.float()).abs().max()):.3g}): max {rel_max:.3e} '
                    f'(limit {limit_max:.3g}), mean {rel_mean:.3e} (limit {limit_mean:.3g})')
-            if depth == B5_DEPTH and B == 7:  # information: eager blocks use the tanh GELU
+            if (depth, B, L) == (B5_DEPTH, 7, enc_bench.L):  # information: eager blocks
+                # use the tanh GELU
                 eager = enc_bench.eager(blocks, x).float()
                 msg += f'; vs the eager blocks {float((got.float() - eager).abs().max()):.3e}'
             print(msg + ' ok')

@@ -27,7 +27,6 @@ import ctypes
 import json
 import os
 import statistics
-import subprocess
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), '..'))
@@ -35,14 +34,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), '..'
 import torch
 
 from experiments.torch_encoder_kernel_bench import card_line, cuda_median_ms
-from parseq_tpu_torch.kernels.build import BUILD_DIR, CSRC, NVCC_FLAGS, find_nvcc
+from experiments.torch_trace_build import build
 from parseq_tpu_torch.ops import attention
 
 PHASES = ('q', 'qk', 'softmax', 'v_wait', 'pv', 'store')
 MAX_BLOCKS = 8192
 SHAPES = (('B2', 256, 197, 6), ('B2', 256, 256, 8), ('B2', 256, 128, 6), ('B3', 1536, 128, 1))
 
-# (anchor in csrc/attention.cu, text inserted after it)
+# (anchor in csrc/attention.cu, where, text inserted): torch_trace_build.traced_source
 MARK = '{{ long long t_ = clock64(); tp[{}] += t_ - tl; tl = t_; }}\n'
 EDITS = (
     ('struct Params {', None,
@@ -78,36 +77,14 @@ EDITS = (
 )
 
 
-def traced_source():
-    src = (CSRC / 'attention.cu').read_text()
-    for anchor, where, text in EDITS:
-        if src.count(anchor) != 1:
-            raise RuntimeError(f'anchor not found once in csrc/attention.cu: {anchor!r}')
-        new = {None: text, 'after': anchor + text, 'before': text + anchor}[where]
-        src = src.replace(anchor, new)
-    return src
-
-
-def build():
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu, so = BUILD_DIR / 'attention_trace.cu', BUILD_DIR / 'libattention_trace.so'
-    cu.write_text(traced_source())
-    subprocess.run([find_nvcc(), *NVCC_FLAGS, str(cu), '-o', str(so)], check=True,
-                   capture_output=True, text=True)
-    lib, ref = ctypes.CDLL(str(so)), attention.library()
-    for name in ('parseq_attention_nosplit', 'parseq_attention_split', 'parseq_attention_max_len',
-                 'parseq_attention_error_string'):
-        getattr(lib, name).argtypes = getattr(ref, name).argtypes
-        getattr(lib, name).restype = getattr(ref, name).restype
-    lib.parseq_attention_trace_copy.argtypes = [ctypes.c_void_p]
-    return lib
-
-
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError('torch_attention_phase_trace: needs a CUDA card')
     card = card_line()
-    traced = build()
+    traced = build('attention.cu', {'trace': EDITS}, attention.library(),
+                   ('parseq_attention_nosplit', 'parseq_attention_split',
+                    'parseq_attention_max_len', 'parseq_attention_error_string'),
+                   ('parseq_attention_trace_copy',))['trace']
     plain_library = attention.library
     gen = torch.Generator(device='cuda').manual_seed(0)
     results = {}

@@ -33,7 +33,6 @@ import ctypes
 import json
 import os
 import statistics
-import subprocess
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), '..'))
@@ -41,14 +40,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), '..'
 import torch
 
 from experiments.torch_encoder_kernel_bench import card_line, cuda_median_ms
-from parseq_tpu_torch.kernels.build import BUILD_DIR, CSRC, NVCC_FLAGS, find_nvcc
+from experiments.torch_trace_build import build
 from parseq_tpu_torch.ops import flash_bwd
 
 PHASES = ('staging', 's_dp', 'softmax', 'dq', 'dk_dv', 'exchange', 'store')
 MAX_BLOCKS = 8192
 SHAPES = ((48, 6, 128, 64), (384, 6, 128, 64))
 
-# (anchor in csrc/flash_bwd.cu, where, text inserted)
+# (anchor in csrc/flash_bwd.cu, where, text inserted): torch_trace_build.traced_source
 MARK = '{{ long long t_ = clock64(); tp_[{}] += t_ - tl_; tl_ = t_; }}\n'
 EDITS = (
     ('template <int DH, int C>\n__global__', None,
@@ -79,36 +78,14 @@ EDITS = (
 )
 
 
-def traced_source():
-    src = (CSRC / 'flash_bwd.cu').read_text()
-    for anchor, where, text in EDITS:
-        if src.count(anchor) != 1:
-            raise RuntimeError(f'anchor not found once in csrc/flash_bwd.cu: {anchor!r}')
-        new = {None: text, 'after': anchor + text, 'before': text + anchor}[where]
-        src = src.replace(anchor, new)
-    return src
-
-
-def build():
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu, so = BUILD_DIR / 'flash_bwd_trace.cu', BUILD_DIR / 'libflash_bwd_trace.so'
-    cu.write_text(traced_source())
-    subprocess.run([find_nvcc(), *NVCC_FLAGS, str(cu), '-o', str(so)], check=True,
-                   capture_output=True, text=True)
-    lib, ref = ctypes.CDLL(str(so)), flash_bwd.library()
-    for name in ('parseq_flash_bwd', 'parseq_flash_bwd_max_len', 'parseq_flash_bwd_error_string'):
-        getattr(lib, name).argtypes = getattr(ref, name).argtypes
-        getattr(lib, name).restype = getattr(ref, name).restype
-    lib.parseq_flash_bwd_trace_copy.argtypes = [ctypes.c_void_p]
-    lib.parseq_flash_bwd_trace_clear.argtypes = [ctypes.c_void_p]
-    return lib
-
-
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError('torch_flash_bwd_phase_trace: needs a CUDA card')
     card = card_line()
-    traced = build()
+    traced = build('flash_bwd.cu', {'trace': EDITS}, flash_bwd.library(),
+                   ('parseq_flash_bwd', 'parseq_flash_bwd_max_len',
+                    'parseq_flash_bwd_error_string'),
+                   ('parseq_flash_bwd_trace_copy', 'parseq_flash_bwd_trace_clear'))['trace']
     plain_library = flash_bwd.library
     gen = torch.Generator(device='cuda').manual_seed(0)
     results = {}

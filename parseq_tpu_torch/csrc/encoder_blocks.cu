@@ -20,9 +20,15 @@
 // TFLOP (115.96 GFLOP of matrix products and 6.44 GFLOP of attention per
 // layer), 1.49 ms at the bf16 tensor-core peak, and must move only ~93 MB
 // (the activations in and out and 42.5 MB of weights), 28 us at 3.35 TB/s:
-// it is bound by operations.
+// it is bound by operations. This design is held further back by what its
+// blocks fetch from L2: every block streams every weight (3.5 MB a layer)
+// and restages its A operand for each 128-column tile (3.45 MB a layer),
+// 21.3 GB a call at B = 256; and by 128 registers a thread, the most that
+// lets two blocks share an SM so that one block's loads, epilogues and
+// softmax overlap the other's products.
+// experiments/torch_encoder_phase_trace.py gives the cycles of each phase.
 //
-// What the design does about it (a first, simple version):
+// What the design does about it:
 //   * One block of 8 warps per image loops over all layers, so the whole
 //     encoder is one launch. The residual stream lives in the output tensor
 //     (96 KB per image, 25 MB at B = 256) and the LayerNorm output h and the
@@ -31,24 +37,37 @@
 //     as the 50 MB L2 holds them, since each block rereads what it wrote a
 //     phase earlier. Per-layer weights (3.5 MB) are shared by all blocks
 //     through L2.
-//   * Every product is a 128 x 128 output tile at a time, a 3-stage cp.async
-//     pipeline of 128 x 32 A and W tiles in shared memory, ldmatrix
-//     fragments and mma.sync m16n8k16 (bf16 in, f32 sums); the epilogue
-//     applies the bias, GELU or residual add with the rounding points above.
-//     W is read in torch's (out, in) layout, which is mma's column-major B.
+//   * All four products go through one routine, gemm: the two warpgroups
+//     take rows 0-63 and 64-127 of a 128 x 128 output tile, each with
+//     wgmma m64n128k16 on operands in shared memory (bf16 in, f32 sums in
+//     64 registers a thread). One 3-stage cp.async ring of 64-deep A and W
+//     slices in the 128-byte swizzle (W read K-major in torch's (out, in)
+//     layout) runs over all tiles of the product without draining between
+//     them. A tile's sums, rounded to bf16, go through the ring slot its
+//     last slice used, so that the epilogue (bias, GELU or residual add,
+//     with the rounding points above) moves 16 bytes a thread.
 //   * Attention takes one head at a time on its 64-column slice (the TPU
 //     kernel's head-masked full-width products are a Mosaic workaround; the
 //     sums are the same). K and V^T are staged in shared memory; each warp
-//     keeps its 16 query rows' whole score rows (L <= 128) in registers, so
-//     softmax uses the exact row max and sum, and the normalised bf16
-//     probabilities feed the PV product straight from the score fragments.
+//     keeps its 16 query rows' whole score rows (L <= 128) in registers
+//     (mma.sync m16n8k16), so softmax uses the exact row max and sum, and
+//     the normalised probabilities, packed to bf16 pairs, are the A
+//     fragments of the PV product.
 //   * GELU uses erff (the TPU kernel's rational erf is a Mosaic workaround).
-// Shared memory: 60 KB per block, two or three blocks per SM.
-// Not done yet: wgmma, TMA, keeping h or the hidden on chip, L > 128.
+// Shared memory: 96 KB per block (the ring; attention reuses 35 KB of it),
+// two blocks per SM, so all 256 images of a PARSeq-S batch run in one wave.
+// Not done yet: weights shared between blocks (TMA multicast to a cluster)
+// instead of fetched by each, the epilogue (GELU above all) overlapped
+// with the next tile's products, LayerNorm fused into the epilogue before
+// it, attention on wgmma, h or the hidden kept on chip, L > 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -59,15 +78,16 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kMaxL = 128;    // tokens per image: 8 warps x 16 query rows, one 128-row tile
 constexpr int kMaxD = 512;    // LayerNorm keeps a row in registers (16 values per lane)
 constexpr int kDh = 64;       // head width
-constexpr int kBM = 128;      // product tile rows (all tokens of the image)
-constexpr int kBN = 128;      // product tile columns
-constexpr int kBK = 32;       // product depth per pipeline stage
+constexpr int kBM = 128;      // product rows (all tokens of the image): warpgroup w has 64w..64w+63
+constexpr int kBN = 128;      // product tile columns: one wgmma m64n128 per warpgroup and k-step
+constexpr int kBK = 64;       // product depth of a ring stage
 constexpr int kStages = 3;
-constexpr int kTS = kBK + 8;  // bf16 row stride of a staged tile: 80 B, ldmatrix conflict-free
+constexpr int kKC = kBK / 8;  // 16-byte chunks of a staged 128-byte row
+constexpr int kSlice = kBM * kBK;  // bf16 of one staged A or W slice (16 KB)
 constexpr int kKS = kDh + 8;  // bf16 row stride of staged K
 constexpr int kVS = kMaxL + 8;  // bf16 row stride of staged V^T
-constexpr size_t kGemmSmem = sizeof(bf16) * kStages * 2 * kBM * kTS;      // 61,440 B
-constexpr size_t kAttnSmem = sizeof(bf16) * (kMaxL * kKS + kDh * kVS);    // 35,840 B
+constexpr size_t kGemmSmem = sizeof(bf16) * kStages * 2 * kSlice;        // 98,304 B
+constexpr size_t kAttnSmem = sizeof(bf16) * (kMaxL * kKS + kDh * kVS);  // 35,840 B
 constexpr size_t kSmem = kGemmSmem > kAttnSmem ? kGemmSmem : kAttnSmem;
 
 struct Params {
@@ -91,29 +111,6 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy through L2 only; fills zeros when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
 // c += a (16x16, row-major fragment) * b (16x8, column-major fragment).
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -123,21 +120,21 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// threadIdx.x read afresh: what a phase derives from it (offsets, masks) is
+// computed in that phase and not held in registers across the whole layer
+// loop, where the attention phase needs them all.
+__device__ __forceinline__ int thread_index() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(t));
+  return t;
+}
+
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float2 bf16x2_at(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -149,7 +146,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 // dst[r] = bf16(LN_f32(src[r]) * s + b) for rows r < L, one warp per row.
 __device__ void layer_norm(const bf16* src, bf16* dst, const float* s, const float* b, int L,
                            int D) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tid = thread_index(), warp = tid >> 5, lane = tid & 31;
   const int pairs = D / 64;  // bf16 pairs per lane
   for (int r = warp; r < L; r += kWarps) {
     const __nv_bfloat162* row = reinterpret_cast<const __nv_bfloat162*>(src + (size_t)r * D);
@@ -184,83 +181,154 @@ __device__ void layer_norm(const bf16* src, bf16* dst, const float* s, const flo
   }
 }
 
-// C = A W^T for the image's rows r < L: A is (L, K) bf16 with row stride lda,
-// W is (N, K) bf16 row-major (torch's (out, in) layout); N % kBN == 0 and
-// K % kBK == 0. Each 128 x 128 tile's f32 sums go to epi(row, col, c0, c1)
-// for the column pair (col, col + 1). 8 warps as 4 (rows) x 2 (columns),
-// 32 x 64 outputs each. Ends with a block barrier: the outputs are visible.
-template <class Epi>
-__device__ void gemm(unsigned char* smem, const bf16* A, int lda, const bf16* W, int N, int K,
-                     int L, Epi epi) {
-  bf16* tiles = reinterpret_cast<bf16*>(smem);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;
-  const bool active = wm * 32 < L;  // warps whose rows are all past L only stage tiles
-  const int KT = K / kBK;
-  for (int n0 = 0; n0 < N; n0 += kBN) {
-    // Stage k-slice kt of A (rows past L zero) and of W's rows n0..n0+127:
-    // 128 rows x 4 chunks of 16 B each, 2 chunks of each per thread.
-    auto load = [&](int kt) {
-      bf16* sa = tiles + (kt % kStages) * 2 * kBM * kTS;
-      bf16* sw = sa + kBM * kTS;
-      const int k0 = kt * kBK;
+// 8 bf16 at p (16-byte aligned) as floats, and 8 floats rounded to bf16 at p.
+__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int idx = tid + u * kThreads, r = idx >> 2, c = (idx & 3) * 8;
-        cp_async16(sa + r * kTS + c, A + (size_t)(r < L ? r : 0) * lda + k0 + c, r < L);
-        cp_async16(sw + r * kTS + c, W + (size_t)(n0 + r) * K + k0 + c, true);
-      }
-    };
-    float acc[2][8][4];
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store8(bf16* p, const float (&v)[8]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                                            pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+}
+
+__device__ __forceinline__ float gelu_erf(float v) {
+  return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
+}
+
+// What a product does with t = bf16(bf16(A W^T) + bias), the rounding
+// points of every product of the layer: out = t (q|k|v), out = bf16(GELU(t))
+// (the MLP hidden) or out = bf16(out + t) (the residual stream).
+enum class Epilogue { kStore, kGelu, kResidual };
+
+// The product for the image's rows r < L: A is (L, K) bf16 with row stride
+// lda, W is (N, K) bf16 row-major (torch's (out, in) layout, K-major as
+// wgmma's B), bias (N) bf16, out (L, N) bf16 with row stride ldo; N % kBN
+// == 0 and K % kBK == 0.
+//
+// One cp.async ring of kStages 64-deep slices (A's 128 rows and W's 128
+// rows of the tile, both in the 128-byte swizzle) runs over all (N tile,
+// k-slice) steps of the product in order, so the next tile's first slices
+// land while the current tile finishes and its epilogue runs: nothing
+// drains between tiles. Warpgroup w multiplies rows 64w..64w+63 by the
+// tile's W slice with wgmma m64n128k16 (4 a slice) and waits for them; a
+// warpgroup whose rows all lie past L only stages. Rows past L are staged
+// as zeros. A tile's products, rounded to bf16, go through the ring slot
+// of its last slice (free once both warpgroups' wgmmas are done) so that
+// the epilogue reads and writes global memory 16 bytes a thread, whole
+// 256-byte rows a warp. Ends with a block barrier: the outputs are visible
+// and the ring is free.
+template <Epilogue E>
+__device__ void gemm(unsigned char* smem, const bf16* A, int lda, const bf16* W, const bf16* bias,
+                     int N, int K, int L, bf16* out, int ldo) {
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  const int tid = thread_index(), warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, wtid = tid & 127, g = lane >> 2, tg = lane & 3;
+  const bool active = wg * 64 < L;
+  const int KT = K / kBK, steps = N / kBN * KT;
+  auto slot = [&](int s) { return ring + (s % kStages) * 2 * kSlice; };
+  // Copy u of a thread stages row (tid + 256 u) / 8, chunk tid % 8 of each
+  // slice: a warp covers 4 whole 128-byte rows per copy, and the swizzle
+  // spreads its 16-byte stores over all 32 banks four times.
+  const int sc = tid & 7;
+  auto load = [&](int s) {
+    bf16* sa = slot(s);
+    bf16* sw = sa + kSlice;
+    const int n0 = s / KT * kBN, k0 = s % KT * kBK + 8 * sc;
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int u = 0; u < kBM * kKC / kThreads; ++u) {
+      const int r = (tid >> 3) + u * (kThreads / kKC);
+      cp_async16(sa + sw128_at(r, sc), A + (size_t)(r < L ? r : 0) * lda + k0, r < L);
+      cp_async16(sw + sw128_at(r, sc), W + (size_t)(n0 + r) * K + k0, true);
+    }
+  };
+  // Set here, though every tile's first product overwrites it: the epilogue
+  // reads acc on a path where a warpgroup that skipped its products would
+  // meet it unset, and the compiler would keep all 64 registers live across
+  // the other phases of the layer (attention needs them).
+  float acc[kBN / 2];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
+  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+  // Ring step s: slice s lands, slice s + 2 goes into slice s - 1's slot
+  // (issued before the products, so that nothing but wgmmas sits between
+  // their fence and their wait), and the warpgroup's products on slice s
+  // run; a tile's first step overwrites acc.
+  auto step = [&](int s, auto accumulate) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of slice s have landed
+    fence_proxy_async();           // ... and are visible to wgmma
+    __syncthreads();               // everyone's have; slice s - 1's wgmmas are done
+    if (s + kStages - 1 < steps) load(s + kStages - 1);
+    cp_async_commit();
+    if (active) {
+      const bf16* sa = slot(s) + sw128_at(64 * wg, 0);
+      const bf16* sw = slot(s) + kSlice;
+      wgmma_fence();
+      wgmma_ss128<decltype(accumulate)::value>(acc, wgmma_desc_sw128(sa, 1024),
+                                               wgmma_desc_sw128(sw, 1024));
+#pragma unroll
+      for (int ks = 1; ks < kBK / 16; ++ks)
+        wgmma_ss128<true>(acc, wgmma_desc_sw128(sa + 16 * ks, 1024),
+                          wgmma_desc_sw128(sw + 16 * ks, 1024));
+      wgmma_commit_and_wait();
+    }
+  };
 
 #pragma unroll
-    for (int st = 0; st < kStages - 1; ++st) {
-      if (st < KT) load(st);
-      cp_async_commit();
-    }
-    for (int kt = 0; kt < KT; ++kt) {
-      cp_async_wait<kStages - 2>();  // this thread's copies of slice kt have landed
-      __syncthreads();               // everyone's have, and slice kt-1's slot is free
-      if (kt + kStages - 1 < KT) load(kt + kStages - 1);
-      cp_async_commit();
-      if (active) {
-        const bf16* sa = tiles + (kt % kStages) * 2 * kBM * kTS;
-        const bf16* sw = sa + kBM * kTS;
-#pragma unroll
-        for (int ks = 0; ks < kBK; ks += 16) {
-          uint32_t a[2][4], b[4][4];
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)  // rows 0-15 x k 0-7, 8-15 x 0-7, 0-15 x 8-15 ...
-            ldmatrix_x4(a[mt], sa + (wm * 32 + mt * 16 + (lane & 15)) * kTS + ks + (lane >> 4) * 8);
-#pragma unroll
-          for (int np = 0; np < 4; ++np)  // n8 tiles 2np, 2np+1: (b0, b1) of each
-            ldmatrix_x4(b[np], sw + (wn * 64 + np * 16 + (lane >> 4) * 8 + (lane & 7)) * kTS + ks +
-                                   ((lane >> 3) & 1) * 8);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < 8; ++nt)
-              mma_bf16(acc[mt][nt], a[mt], b[nt >> 1][(nt & 1) * 2], b[nt >> 1][(nt & 1) * 2 + 1]);
-        }
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // all warps are done with the slots before the next tile stages into them
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < steps) load(st);
+    cp_async_commit();
+  }
+  for (int n0 = 0, s = 0; n0 < N; n0 += kBN) {
+    step(s++, std::false_type());
+    for (int kt = 1; kt < KT; ++kt) step(s++, std::true_type());
+    __syncthreads();  // both warpgroups' wgmmas are done with the slot
+    // Warpgroup w's 64 x 128 products in its half of the slot: 256-byte
+    // rows, 16-byte chunk j of row r at chunk j ^ (r % 8). Warp w % 4 holds
+    // rows 16 (w % 4) + g and + 8, columns 8j + 2tg + {0, 1} at acc[4j +
+    // {0, 1}] and acc[4j + {2, 3}].
+    bf16* tile = slot(s - 1) + wg * kSlice;
     if (active) {
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int row = wm * 32 + mt * 16 + g;
+      for (int j = 0; j < kBN / 8; ++j)
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int col = n0 + wn * 64 + nt * 8 + 2 * tg;
-          if (row < L) epi(row, col, acc[mt][nt][0], acc[mt][nt][1]);
-          if (row + 8 < L) epi(row + 8, col, acc[mt][nt][2], acc[mt][nt][3]);
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = 16 * (warp & 3) + g + 8 * hf;
+          *reinterpret_cast<uint32_t*>(tile + r * kBN + ((j ^ (r & 7)) << 3) + 2 * tg) =
+              pack_bf16(acc[4 * j + 2 * hf], acc[4 * j + 2 * hf + 1]);
         }
+    }
+    bar_sync(1 + wg, kThreads / 2);
+    if (active) {
+      // A thread takes chunk c = wtid % 16 of rows wtid / 16 + 8i: one bias
+      // chunk, and whole 256-byte rows a warp.
+      constexpr int kChunks = kBN / 8, kRowStep = kThreads / 2 / kChunks;
+      const int c = wtid % kChunks, rows = min(L - 64 * wg, 64);
+      bf16* dst = out + (size_t)(64 * wg) * ldo + n0 + 8 * c;
+      float bb[8];
+      load8(bias + n0 + 8 * c, bb);
+#pragma unroll 1
+      for (int r = wtid / kChunks; r < rows; r += kRowStep) {
+        float t[8];
+        load8(tile + r * kBN + ((c ^ (r & 7)) << 3), t);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) t[e] = round_bf16(t[e] + bb[e]);
+        bf16* o = dst + (size_t)r * ldo;
+        if constexpr (E == Epilogue::kGelu) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) t[e] = gelu_erf(t[e]);
+        } else if constexpr (E == Epilogue::kResidual) {
+          float v[8];
+          load8(o, v);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) t[e] += v[e];
+        }
+        store8(o, t);
       }
     }
   }
@@ -276,7 +344,7 @@ __device__ void attention(unsigned char* smem, bf16* big, int ldb, int L, int D,
   bf16* s_k = reinterpret_cast<bf16*>(smem);
   unsigned short* s_vt = reinterpret_cast<unsigned short*>(smem + sizeof(bf16) * kMaxL * kKS);
   const bf16* vt = reinterpret_cast<const bf16*>(s_vt);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = thread_index(), warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tg = lane & 3;
   const int Lp = (L + 15) & ~15;  // keys padded to a multiple of 16 with zero rows
   const int ra = warp * 16 + g, rb = ra + 8;
@@ -361,7 +429,15 @@ __device__ void attention(unsigned char* smem, bf16* big, int ldb, int L, int D,
       sumb += __shfl_xor_sync(0xffffffffu, sumb, 1);
       sumb += __shfl_xor_sync(0xffffffffu, sumb, 2);
 
-      // O = P V: the score fragments of n8 tiles 2kk and 2kk+1 are the A
+      // The normalised probabilities of rows ra and rb as bf16 pairs: half
+      // the registers of the f32 scores, which end here.
+      uint32_t pr[kMaxL / 8][2];
+#pragma unroll
+      for (int nt = 0; nt < kMaxL / 8; ++nt) {
+        pr[nt][0] = pack_bf16(s[nt][0] / suma, s[nt][1] / suma);
+        pr[nt][1] = pack_bf16(s[nt][2] / sumb, s[nt][3] / sumb);
+      }
+      // O = P V: the probabilities of n8 tiles 2kk and 2kk+1 are the A
       // fragment of k-step kk.
       float o[8][4];
 #pragma unroll
@@ -369,11 +445,8 @@ __device__ void attention(unsigned char* smem, bf16* big, int ldb, int L, int D,
 #pragma unroll
       for (int kk = 0; kk < kMaxL / 16; ++kk) {
         if (kk * 16 < Lp) {
-          const uint32_t pa[4] = {
-              pack_bf16(s[2 * kk][0] / suma, s[2 * kk][1] / suma),
-              pack_bf16(s[2 * kk][2] / sumb, s[2 * kk][3] / sumb),
-              pack_bf16(s[2 * kk + 1][0] / suma, s[2 * kk + 1][1] / suma),
-              pack_bf16(s[2 * kk + 1][2] / sumb, s[2 * kk + 1][3] / sumb)};
+          const uint32_t pa[4] = {pr[2 * kk][0], pr[2 * kk][1], pr[2 * kk + 1][0],
+                                  pr[2 * kk + 1][1]};
 #pragma unroll
           for (int nt = 0; nt < 8; ++nt) {
             const bf16* vr = vt + (nt * 8 + g) * kVS + kk * 16 + 2 * tg;
@@ -393,12 +466,8 @@ __device__ void attention(unsigned char* smem, bf16* big, int ldb, int L, int D,
   }
 }
 
-__device__ __forceinline__ float gelu_erf(float v) {
-  return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
-}
-
 __global__ void __launch_bounds__(kThreads, 2) encoder_blocks_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
+  extern __shared__ __align__(1024) unsigned char smem[];
   const int L = p.L, D = p.D, F = p.F, ldb = p.ldb;
   const size_t b = blockIdx.x;
   bf16* x = p.out + b * L * D;
@@ -416,36 +485,16 @@ __global__ void __launch_bounds__(kThreads, 2) encoder_blocks_kernel(const Param
     const bf16* bo = p.bo + (size_t)l * D;
     const bf16* b1 = p.b1 + (size_t)l * F;
     const bf16* b2 = p.b2 + (size_t)l * D;
-    // x + bf16(bf16(acc) + bias), in place on the residual stream.
-    auto residual = [&](const bf16* bias) {
-      return [=](int r, int c, float v0, float v1) {
-        const float2 bb = bf16x2_at(bias + c);
-        __nv_bfloat162* px = reinterpret_cast<__nv_bfloat162*>(x + (size_t)r * D + c);
-        const float2 xv = __bfloat1622float2(*px);
-        *px = __floats2bfloat162_rn(xv.x + round_bf16(round_bf16(v0) + bb.x),
-                                    xv.y + round_bf16(round_bf16(v1) + bb.y));
-      };
-    };
-
     layer_norm(x, h, p.ln1_s + (size_t)l * D, p.ln1_b + (size_t)l * D, L, D);
     __syncthreads();
-    gemm(smem, h, D, p.wqkv + (size_t)l * 3 * D * D, 3 * D, D, L,
-         [=](int r, int c, float v0, float v1) {
-           const float2 bb = bf16x2_at(bqkv + c);
-           *reinterpret_cast<__nv_bfloat162*>(big + (size_t)r * ldb + c) =
-               __floats2bfloat162_rn(round_bf16(v0) + bb.x, round_bf16(v1) + bb.y);
-         });
+    gemm<Epilogue::kStore>(smem, h, D, p.wqkv + (size_t)l * 3 * D * D, bqkv, 3 * D, D, L, big, ldb);
     attention(smem, big, ldb, L, D, p.H, p.scale);
-    gemm(smem, big, ldb, p.wo + (size_t)l * D * D, D, D, L, residual(bo));
+    gemm<Epilogue::kResidual>(smem, big, ldb, p.wo + (size_t)l * D * D, bo, D, D, L, x, D);
 
     layer_norm(x, h, p.ln2_s + (size_t)l * D, p.ln2_b + (size_t)l * D, L, D);
     __syncthreads();
-    gemm(smem, h, D, p.w1 + (size_t)l * F * D, F, D, L, [=](int r, int c, float v0, float v1) {
-      const float2 bb = bf16x2_at(b1 + c);
-      *reinterpret_cast<__nv_bfloat162*>(big + (size_t)r * ldb + c) = __floats2bfloat162_rn(
-          gelu_erf(round_bf16(round_bf16(v0) + bb.x)), gelu_erf(round_bf16(round_bf16(v1) + bb.y)));
-    });
-    gemm(smem, big, ldb, p.w2 + (size_t)l * D * F, D, F, L, residual(b2));
+    gemm<Epilogue::kGelu>(smem, h, D, p.w1 + (size_t)l * F * D, b1, F, D, L, big, ldb);
+    gemm<Epilogue::kResidual>(smem, big, ldb, p.w2 + (size_t)l * D * F, b2, D, F, L, x, D);
   }
 }
 

@@ -487,15 +487,6 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// Named barriers: `id` (1 .. 15) over `n` threads of the block.
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
 // (x0, x1) -> bf16 pairs hi = bf16(x) and lo = bf16(x - hi), 16 significant
 // bits of each x between them, at dst and dst + lo_off.
 __device__ __forceinline__ void put_split(bf16* dst, int lo_off, float x0, float x1) {

@@ -1,9 +1,11 @@
-// Device helpers for Hopper (sm_90a) shared by the port's attention kernels
-// (csrc/attention.cu: B2 and B3; csrc/flash_bwd.cu: B4): cp.async staging,
-// wgmma shared-memory descriptors and products, proxy fences, bf16 packing
-// and quad reductions over the rows of an mma / wgmma accumulator.
+// Device helpers for Hopper (sm_90a) shared by the port's kernels
+// (csrc/attention.cu: B2 and B3; csrc/flash_bwd.cu: B4; csrc/encoder_blocks.cu:
+// B5): cp.async staging, wgmma shared-memory descriptors and products, proxy
+// fences, named barriers, bf16 packing and quad reductions over the rows of
+// an mma / wgmma accumulator.
 //
-// Shared-memory operands are kept as wgmma core matrices without swizzle:
+// Shared-memory operands are kept as wgmma core matrices without swizzle
+// (B5's products use the 128-byte swizzle instead: wgmma_desc_sw128):
 // 8 rows x 16 bytes (128 contiguous bytes) each. A matrix of R rows and
 // 8 * NC bf16 columns puts element (r, c) at
 //   (r / 8) * (NC * 64) + (c / 8) * 64 + (r % 8) * 8 + c % 8   (elements),
@@ -48,6 +50,20 @@ __device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo, uint
          ((uint64_t)(sbo >> 4) << 32);
 }
 
+// Descriptor of a K-major operand in the 128-byte swizzle: rows of 64 bf16
+// (128 bytes) back to back, 16-byte chunk c of row r at chunk c ^ (r % 8),
+// 8-row atoms of 1024 bytes (aligned to 1024) sbo bytes apart. The k-step
+// of 16 elements at k0 starts 2 * k0 bytes into the row (sw128_at).
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* p, uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3ffff) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// Element offset of (r, 8 c) in the 128-byte swizzle above.
+__host__ __device__ constexpr int sw128_at(int r, int c) {
+  return r * 64 + ((c ^ (r & 7)) << 3);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -59,6 +75,15 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_commit_and_wait() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Named barriers: `id` (1 .. 15) over `n` threads of the block.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // Shared-memory writes of this thread (cp.async's or plain stores) made
@@ -91,6 +116,48 @@ __device__ __forceinline__ void wgmma_ss64(float* d, uint64_t da, uint64_t db) {
         "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
+
+// d (m64n128, 64 f32 a thread) = A (64 x 16) * B (16 x 128) (+ d when
+// kAccumulate), both operands K-major in shared memory. Without kAccumulate
+// d is write-only, so the registers are free for other work before the
+// first product.
+#define HOPPER_D64(F) \
+  F(d[0]), F(d[1]), F(d[2]), F(d[3]), F(d[4]), F(d[5]), F(d[6]), F(d[7]), F(d[8]), F(d[9]), \
+  F(d[10]), F(d[11]), F(d[12]), F(d[13]), F(d[14]), F(d[15]), F(d[16]), F(d[17]), F(d[18]), \
+  F(d[19]), F(d[20]), F(d[21]), F(d[22]), F(d[23]), F(d[24]), F(d[25]), F(d[26]), F(d[27]), \
+  F(d[28]), F(d[29]), F(d[30]), F(d[31]), F(d[32]), F(d[33]), F(d[34]), F(d[35]), F(d[36]), \
+  F(d[37]), F(d[38]), F(d[39]), F(d[40]), F(d[41]), F(d[42]), F(d[43]), F(d[44]), F(d[45]), \
+  F(d[46]), F(d[47]), F(d[48]), F(d[49]), F(d[50]), F(d[51]), F(d[52]), F(d[53]), F(d[54]), \
+  F(d[55]), F(d[56]), F(d[57]), F(d[58]), F(d[59]), F(d[60]), F(d[61]), F(d[62]), F(d[63])
+#define HOPPER_RW(x) "+f"(x)
+#define HOPPER_WO(x) "=f"(x)
+#define HOPPER_M64N128K16                                                       \
+  "{\n"                                                                          \
+  ".reg .pred p;\n"                                                              \
+  "setp.ne.b32 p, %66, 0;\n"                                                     \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "     \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, " \
+  "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
+  "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, " \
+  "%61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"                                   \
+  "}\n"
+template <bool kAccumulate>
+__device__ __forceinline__ void wgmma_ss128(float* d, uint64_t da, uint64_t db) {
+  if constexpr (kAccumulate) {
+    asm volatile(HOPPER_M64N128K16
+                 : HOPPER_D64(HOPPER_RW)
+                 : "l"(da), "l"(db), "r"(1));
+  } else {
+    asm volatile(HOPPER_M64N128K16
+                 : HOPPER_D64(HOPPER_WO)
+                 : "l"(da), "l"(db), "r"(0));
+  }
+}
+#undef HOPPER_M64N128K16
+#undef HOPPER_WO
+#undef HOPPER_RW
+#undef HOPPER_D64
 
 // d (m64n32, 16 f32 a thread) += A (64 x 16) * B (16 x 32), as wgmma_ss64.
 template <int TA, int TB>

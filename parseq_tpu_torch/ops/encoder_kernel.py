@@ -72,6 +72,12 @@ def _ln(x32, scale, bias, eps=1e-5):
     return (x32 - mean) * torch.rsqrt(var + eps) * scale + bias
 
 
+def _dense(a, w, b):
+    """a w^T + b in a's dtype: f32 sums rounded to that dtype, then the bias
+    added in it."""
+    return (a.float() @ w.float().t()).to(a.dtype) + b.to(a.dtype)
+
+
 def _attention(q, k, v, scale):
     """Per-head attention on (B, h, L, dh) in their dtype: f32 scores and
     softmax, probabilities rounded, f32 PV sums, rounded."""
@@ -87,20 +93,17 @@ def fused_encoder_blocks_reference(op, x, num_heads):
     dh = D // num_heads
     scale = 1.0 / math.sqrt(dh)
 
-    def dense(a, w, b):  # f32 sums, rounded to dt, then + bias in dt
-        return (a.float() @ w.float().t()).to(dt) + b.to(dt)
-
     def heads(t):  # (B, L, D) -> (B, h, L, dh)
         return t.reshape(B, L, num_heads, dh).transpose(1, 2)
 
     for i in range(op['wqkv'].shape[0]):
         h = _ln(x.float(), op['ln1_s'][i], op['ln1_b'][i]).to(dt)
-        q, k, v = (heads(t) for t in dense(h, op['wqkv'][i], op['bqkv'][i]).split(D, dim=-1))
+        q, k, v = (heads(t) for t in _dense(h, op['wqkv'][i], op['bqkv'][i]).split(D, dim=-1))
         o = _attention(q, k, v, scale).transpose(1, 2).reshape(B, L, D)
-        x = x + dense(o, op['wo'][i], op['bo'][i])
+        x = x + _dense(o, op['wo'][i], op['bo'][i])
         h = _ln(x.float(), op['ln2_s'][i], op['ln2_b'][i]).to(dt)
-        hid = F.gelu(dense(h, op['w1'][i], op['b1'][i]).float()).to(dt)
-        x = x + dense(hid, op['w2'][i], op['b2'][i])
+        hid = F.gelu(_dense(h, op['w1'][i], op['b1'][i]).float()).to(dt)
+        x = x + _dense(hid, op['w2'][i], op['b2'][i])
     return x
 
 

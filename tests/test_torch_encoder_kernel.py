@@ -189,6 +189,46 @@ def test_b5_limits_catch_attention_faults(bench, full_geometry, monkeypatch, dep
     assert rel_mean > 2 * limit_mean and rel_max > limit_max
 
 
+_DENSE = encoder_kernel._dense
+
+
+def _mlp2_last_slice_dropped(a, w, b):
+    """MLP2 (the one product deeper than it is wide) without its last 64-deep
+    k-slice: a ring step lost."""
+    if w.shape[1] > w.shape[0]:
+        a = a.clone()
+        a[..., -64:] = 0
+    return _DENSE(a, w, b)
+
+
+def _rows_64_127_repeat_rows_0_63(a, w, b):
+    """Every product's rows 64-127 (warpgroup 1's) given rows 0-63's."""
+    out = _DENSE(a, w, b)
+    out[:, 64:128] = out[:, 0:64]
+    return out
+
+
+def _qkv_bias_dropped(a, w, b):
+    return _DENSE(a, w, torch.zeros_like(b) if w.shape[0] == 3 * w.shape[1] else b)
+
+
+@pytest.mark.parametrize('depth', [1, 12])
+@pytest.mark.parametrize('fault', [_mlp2_last_slice_dropped, _rows_64_127_repeat_rows_0_63,
+                                   _qkv_bias_dropped])
+def test_b5_limits_catch_product_faults(bench, full_geometry, monkeypatch, depth, fault):
+    """B5_LIMITS fail a plain version with a planted fault in its matrix
+    products, on the smoke's weights and geometry, as they do the attention
+    faults above: each exceeds the max limit and twice the mean limit."""
+    x, ops, wants = full_geometry
+    monkeypatch.setattr(encoder_kernel, '_dense', fault)
+    with torch.inference_mode():
+        bad = encoder_kernel.fused_encoder_blocks_reference(ops[depth], x, bench.HEADS)
+    rel_max, rel_mean = bench.contribution_errors(bad, wants[depth], x)
+    print(f'{fault.__name__} depth {depth}: relative max {rel_max:.4f}, mean {rel_mean:.4f}')
+    limit_max, limit_mean = bench.B5_LIMITS[depth]
+    assert rel_mean > 2 * limit_mean and rel_max > limit_max
+
+
 def test_bench_weights_make_attention_matter(bench, full_geometry):
     """With make_blocks' q/k/v weights the first layer's scores spread by
     about SCORE_STD (well away from a uniform softmax)."""
@@ -243,7 +283,19 @@ def cuda_device():
 @pytest.mark.gpu
 @pytest.mark.parametrize('B,L,D,heads,F,depth', [(1, 128, 384, 6, 1536, 2),
                                                  (7, 128, 384, 6, 1536, 2),
-                                                 (3, 37, 128, 2, 256, 3)])
+                                                 (3, 37, 128, 2, 256, 3),
+                                                 # Depth 1 (the tight limits).
+                                                 # L <= 64: warpgroup 0 alone
+                                                 # has rows; 65: one in
+                                                 # warpgroup 1
+                                                 (3, 1, 384, 6, 1536, 1),
+                                                 (3, 37, 384, 6, 1536, 1),
+                                                 (3, 64, 384, 6, 1536, 1),
+                                                 (3, 65, 384, 6, 1536, 1),
+                                                 (3, 127, 384, 6, 1536, 1),
+                                                 (3, 128, 512, 8, 2048, 1),
+                                                 (3, 128, 384, 6, 128, 1),
+                                                 (3, 128, 384, 6, 2048, 1)])
 def test_cuda_kernel_matches_plain(bench, cuda_device, B, L, D, heads, F, depth):
     """bf16 kernel against the plain version on the card (f32 matmuls, TF32
     off), on weights where attention matters: the same rounding points, sums
