@@ -11,8 +11,12 @@ from a seed), in phases, each printing its result:
      B4 (csrc/flash_bwd.cu) and B5 (csrc/encoder_blocks.cu) with nvcc for
      sm_90a, all compiles started together;
   3. kernel vs plain: B1 (fused AR decode) against its plain PyTorch
-     version, teacher-forced on the kernel's picks, at PARSeq-S's M = 128
-     and at patch16-224's M = 196, at B = 1, 7, 256; B2 (fused no-split
+     version on its shared card check (ops/ar_kernel.py: check_run,
+     teacher-forced on the kernel's picks; |kernel - plain| relative to
+     max|plain| within CHECK_LIMITS in max and mean), at PARSeq-S's M = 128
+     and at patch16-224's M = 196, at B = 1, 7, 256, and on check_model's
+     weights at B = 9 with each rows per block R = 1, 2, 4, 8 forced, at M =
+     1, 128, 196 and for a D = 64, 2-head decoder; B2 (fused no-split
      attention) at (h, D) = (6, 384) and L = 1, 5, 16, 17, 128, 129, 196
      (patch16-224), 197 (ViTSTR), 256, 416, and at ABINet's (256, 8, 512),
      and B3 (head-split attention) at (BH, L, dh) = (6B, L, 64) for the same
@@ -58,7 +62,8 @@ from a seed), in phases, each printing its result:
      forward and backward at (1536, 128, 64) with its count set to 0 and
      read likewise;
   7. times (CUDA events, median of 20 after warm-up; B2, B3 and B4 per call
-     of 10 back-to-back calls queued behind a GPU spin, i.e. device time):
+     of 10 back-to-back calls queued behind a GPU spin, i.e. device time;
+     B1 at B = 1, 7, 256 (M = 128) and 256 (M = 196), with prepare() alone):
      each kernel vs its plain version and one
      PyTorch library call computing the same function where there is one,
      beside the kernel's bound (B2 at L = 128, 196, 197, 256 and B = 256,
@@ -93,10 +98,16 @@ SEED = 0
 BATCHES = (1, 7, 256)
 TIMED_BATCH = 256
 BACK_TO_BACK = 10  # calls per event pair when timing B2, B3 and B4
-# B1 vs plain: the same f32/bf16 roundings, f32 sums in another order.
-KERNEL_ATOL = 1e-2
-# Greedy picks must agree wherever the top-2 margin exceeds bf16 noise.
-KERNEL_MARGIN = 0.05
+# B1 vs plain: the shared card check of ops/ar_kernel.py (check_model: every
+# decoder parameter drawn with numpy; check_run: teacher-forced on the
+# kernel's picks; |kernel - plain| relative to max|plain| within
+# CHECK_LIMITS in max and mean, greedy picks equal where the margin is
+# clear), on the main path's models and on check_model's at every rows per
+# block forced, a ragged B, M = 1, 128 and 196, and a D = 64, 2-head model.
+B1_ROWS = (1, 2, 4, 8)
+B1_RAGGED_BATCH = 9
+B1_MEMORY_ROWS = (1, 128, 196)
+B1_TIMED_BATCHES = (1, 7, TIMED_BATCH)
 # B2 and B3 vs plain: the shared card check of ops/attention.py (inputs
 # from check_operands, limits CHECK_LIMITS), at every length class of the
 # kernel: one row, ragged single tiles, PARSeq-S's 128, the L >= 192 users
@@ -172,7 +183,7 @@ def importable(name):
     return True
 
 
-def compare(got, want, atol=KERNEL_ATOL, margin=KERNEL_MARGIN, what='kernel'):
+def compare(got, want, atol, margin, what):
     """Max abs difference; raises unless within `atol` and the greedy picks
     agree wherever the reference's top-2 margin exceeds `margin`."""
     err = float((got - want).abs().max())
@@ -183,6 +194,23 @@ def compare(got, want, atol=KERNEL_ATOL, margin=KERNEL_MARGIN, what='kernel'):
         raise AssertionError(f'{what} disagrees with its plain version: max_abs_err={err} '
                              f'(limit {atol}), argmax equal where the margin > {margin}: {agree}')
     return err, int(confident.sum())
+
+
+def b1_check(what, model, memory, rows=None):
+    """B1 through the shared card check (ops/ar_kernel.py); raises unless it
+    passes. Returns the max abs difference."""
+    from parseq_tpu_torch.ops import ar_kernel
+
+    got, want, rel_max, rel_mean, passes = ar_kernel.check_run(model, memory, rows)
+    torch.cuda.synchronize()
+    if got.shape != (memory.shape[0], model.cfg.num_steps, model.cfg.num_classes) or not passes:
+        raise AssertionError(f'{what}: B1 disagrees with its plain version: relative max '
+                             f'{rel_max:.3e}, mean {rel_mean:.3e} (limits '
+                             f'{ar_kernel.CHECK_LIMITS}), greedy picks (agree, positions) '
+                             f'{ar_kernel.check_greedy(got, want)}')
+    err = float((got - want).abs().max())
+    print(f'{what}: relative max {rel_max:.3e} mean {rel_mean:.3e}, max_abs_err={err:.3e} ok')
+    return err
 
 
 def packed_qkv(B, L, D, gen, dtype=torch.bfloat16):
@@ -311,8 +339,8 @@ def main():
     print(f'python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}')
     print(f'nvcc {find_nvcc()}; nvidia-smi {shutil.which("nvidia-smi")}')
     print('importable: ' + ', '.join(f'{m}={importable(m)}' for m in ('triton', 'yaml', 'PIL')))
-    print(f'card: {card}; devices {torch.cuda.device_count()}; '
-          f'SMs {torch.cuda.get_device_properties(dev).multi_processor_count}')
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f'card: {card}; devices {torch.cuda.device_count()}; SMs {sms}')
 
     phase('2 build (B1, B2 and B3, B4, B5 in parallel)')
     t0 = time.perf_counter()
@@ -339,15 +367,20 @@ def main():
                     rng.uniform(-1, 1, (B, *cfg.img_size, 3)).astype(np.float32)).to(dev)
                 memory = model.encode(images.to(torch.bfloat16)).contiguous()
                 memories[name, B] = memory
-                got = ar_kernel.ar_decode_fused(model, memory)
-                torch.cuda.synchronize()
-                want = ar_kernel.ar_decode_fused_reference(model, memory, tokens=got.argmax(-1))
-                torch.cuda.synchronize()
-                if got.shape != (B, cfg.num_steps, cfg.num_classes):
-                    raise AssertionError(f'B1 output {tuple(got.shape)} misshapen')
-                err, _ = compare(got, want, what='B1')
-                b1_err = max(b1_err, err)
-                print(f'B1 {name} B={B}: memory {tuple(memory.shape)} max_abs_err={err:.3e} ok')
+                b1_err = max(b1_err, b1_check(f'B1 {name} B={B} M={memory.shape[1]}', model,
+                                              memory))
+        # check_model's decoder at every rows per block, ragged B, M = 1, 128, 196.
+        small = PARSeqConfig(num_tokens=13, max_label_length=7, img_size=(32, 64),
+                             embed_dim=64, enc_num_heads=2, enc_depth=1, dec_num_heads=2)
+        for cfg, memory_rows in ((PARSeqConfig(), B1_MEMORY_ROWS), (small, (64,))):
+            model = ar_kernel.check_model(cfg, SEED).to(dev)
+            for M in memory_rows:
+                memory = ar_kernel.check_memory(B1_RAGGED_BATCH, M, cfg.embed_dim, SEED + 1, dev)
+                for R in B1_ROWS:
+                    b1_err = max(b1_err, b1_check(
+                        f'B1 check_model D={cfg.embed_dim} B={B1_RAGGED_BATCH} M={M} R={R}',
+                        model, memory, R))
+        del model
 
         gen = torch.Generator(device=dev).manual_seed(SEED)
         for dtype in (torch.bfloat16, torch.float32):
@@ -586,14 +619,19 @@ def main():
     phase(f'7 times [{card}]')
     timed = {}
     with torch.inference_mode():
-        for name in ('PARSeq-S', 'PARSeq-S patch16-224'):
-            model, memory = b1_models[name], memories[name, TIMED_BATCH]
-            timed['B1', name] = (
+        # B1 as the main path calls it (prepare() and the kernel), and prepare() alone.
+        for name, B in (*(('PARSeq-S', B) for B in B1_TIMED_BATCHES),
+                        ('PARSeq-S patch16-224', TIMED_BATCH)):
+            model, memory = b1_models[name], memories[name, B]
+            timed['B1', name, B] = (
                 cuda_median_ms(lambda: ar_kernel.ar_decode_fused(model, memory)),
-                cuda_median_ms(lambda: ar_kernel.ar_decode_fused_reference(model, memory)))
-            print(f'B1 ar_decode_fused {name} (M={memory.shape[1]}) B={TIMED_BATCH} [{card}]: '
-                  f'kernel {timed["B1", name][0]:.4f} ms, plain {timed["B1", name][1]:.4f} ms, '
-                  f'bound {b1_bound(TIMED_BATCH, memory.shape[1], model.cfg)[0]:.4f} ms')
+                cuda_median_ms(lambda: ar_kernel.ar_decode_fused_reference(model, memory)),
+                cuda_median_ms(lambda: ar_kernel.prepare(model, memory)))
+            ms, plain_ms, prep_ms = timed['B1', name, B]
+            print(f'B1 ar_decode_fused {name} (M={memory.shape[1]}) B={B} rows per block '
+                  f'{ar_kernel.rows_per_block(B, sms)} [{card}]: kernel {ms:.4f} ms (of which '
+                  f'prepare() alone {prep_ms:.4f} ms), plain {plain_ms:.4f} ms, bound '
+                  f'{b1_bound(B, memory.shape[1], model.cfg)[0]:.4f} ms')
         gen = torch.Generator(device=dev).manual_seed(SEED + 1)
         for L, h, D in (*ATTENTION_SHAPES, GATE_SHAPE):
             q, k, v = packed_qkv(TIMED_BATCH, L, D, gen)
@@ -678,9 +716,12 @@ def main():
          'source': 'parseq_tpu_torch/csrc/ar_decode.cu',
          'replaces': 'parseq_tpu/ops/ar_kernel.py:158',
          'launches': main_launches['B1'], 'max_abs_err': b1_err,
-         'ms': timed['B1', 'PARSeq-S'][0], 'plain_ms': timed['B1', 'PARSeq-S'][1],
+         'ms': timed['B1', 'PARSeq-S', TIMED_BATCH][0],
+         'plain_ms': timed['B1', 'PARSeq-S', TIMED_BATCH][1],
          'bound_ms': b1_ms[0], 'bound_us': b1_ms[0] * 1e3, 'bound_by': b1_ms[1],
-         'library_ms': None, 'at': f'B={TIMED_BATCH} M=128 (PARSeq-S)'},
+         'library_ms': None, 'at': f'B={TIMED_BATCH} M=128 (PARSeq-S)',
+         'prep_ms': timed['B1', 'PARSeq-S', TIMED_BATCH][2],
+         **{f'ms_b{B}': timed['B1', 'PARSeq-S', B][0] for B in B1_TIMED_BATCHES[:-1]}},
         {'name': 'fused_attention_nosplit', 'route': 'cuda',
          'source': 'parseq_tpu_torch/csrc/attention.cu',
          'replaces': 'parseq_tpu/ops/attention.py:146',

@@ -141,12 +141,6 @@ size_t smem_bytes(int L) {
                         : sizeof(float) * 2 * Lk * row_stride<float>();
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
 // d (m64n64, 32 f32 a thread) += a (this warp's 16 rows x 16, registers) * B (16 x 64
 // in shared memory, K-major, described by `desc`).
 __device__ __forceinline__ void wgmma_k64(float* d, const uint32_t* a, uint64_t desc) {

@@ -111,15 +111,6 @@ struct Params {
   float scale;
 };
 
-// c += a (16x16, row-major fragment) * b (16x8, column-major fragment).
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // threadIdx.x read afresh: what a phase derives from it (offsets, masks) is
 // computed in that phase and not held in registers across the whole layer
 // loop, where the attention phase needs them all.

@@ -1,8 +1,9 @@
 // Device helpers for Hopper (sm_90a) shared by the port's kernels
-// (csrc/attention.cu: B2 and B3; csrc/flash_bwd.cu: B4; csrc/encoder_blocks.cu:
-// B5): cp.async staging, wgmma shared-memory descriptors and products, proxy
-// fences, named barriers, bf16 packing and quad reductions over the rows of
-// an mma / wgmma accumulator.
+// (csrc/ar_decode.cu: B1; csrc/attention.cu: B2 and B3; csrc/flash_bwd.cu:
+// B4; csrc/encoder_blocks.cu: B5): cp.async staging, the 128-byte swizzle,
+// ldmatrix and mma.sync (m16n8k16, bf16 -> f32), wgmma shared-memory
+// descriptors and products, proxy fences, named barriers, bf16 packing and
+// quad reductions over the rows of an mma / wgmma accumulator.
 //
 // Shared-memory operands are kept as wgmma core matrices without swizzle
 // (B5's products use the 128-byte swizzle instead: wgmma_desc_sw128):
@@ -62,6 +63,23 @@ __device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* p, uint32_t sbo
 // Element offset of (r, 8 c) in the 128-byte swizzle above.
 __host__ __device__ constexpr int sw128_at(int r, int c) {
   return r * 64 + ((c ^ (r & 7)) << 3);
+}
+
+// Four 8x8 b16 matrices from shared memory: lanes 8i .. 8i + 7 give the
+// row addresses of matrix i (16-byte aligned), r[i] gets its fragment.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a (16x16, row-major fragment) * b (16x8, column-major fragment).
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -1,6 +1,8 @@
 """Fused AR decode (kernel B1): the port's plain version against the JAX
-Pallas kernel in interpret mode, and the CUDA kernel against the plain
-version on the card (marked `gpu`, skipped without one).
+Pallas kernel in interpret mode, the shared card check (ops/ar_kernel.py:
+check_model, check_run, CHECK_LIMITS) against faults planted in the plain
+version, and the CUDA kernel against the plain version on the card through
+that check (marked `gpu`, skipped without one).
 
 Comparison method of tests/test_fused_attention.py: random weights make
 near-tie greedy picks, so besides the direct comparison one side is
@@ -73,10 +75,102 @@ def test_cpu_tensor_takes_plain_version(setup):
         got.numpy(), ar_kernel.ar_decode_fused_reference(model, memory).numpy())
 
 
-@pytest.mark.parametrize('batch,sms,rows', [(1, 132, 1), (132, 132, 1), (133, 132, 2),
-                                            (256, 132, 2), (300, 132, 4), (2000, 132, 8)])
+# The policy of the card's B x R table (PERF.md §6, B1): the fewest rows a
+# block that keep the grid within one wave.
+@pytest.mark.parametrize('batch,sms,rows', [(1, 132, 1), (7, 132, 1), (64, 132, 1),
+                                            (132, 132, 1), (133, 132, 2), (256, 132, 2),
+                                            (300, 132, 4), (512, 132, 4), (2000, 132, 8)])
 def test_rows_per_block_fills_one_wave(batch, sms, rows):
     assert ar_kernel.rows_per_block(batch, sms) == rows
+
+
+# The card check's faults, planted in the plain version at PARSeq-S's full
+# width: each changes what one product, the self-attention or the head
+# computes, as a kernel fault would (a lost bias, a lost ring stage, a
+# misrouted column of the n8 operand, a missed key, classes never stored).
+def _zero_last_slice(x):
+    x = x.clone()
+    x[..., -64:] = 0
+    return x
+
+
+def _row1_gets_row0(y):
+    y = y.clone()
+    y[1] = y[0]
+    return y
+
+
+def _classes_dropped(y):
+    y = y.clone()
+    y[..., 80:95] = 0
+    return y
+
+
+def _product_fault(name, fault):
+    """Patches _linear so that product `name` computes fault(plain, x, c)."""
+    return lambda plain: lambda x, c, n: fault(plain, x, c) if n == name else plain(x, c, n)
+
+
+# name: (attribute of ar_kernel, function of the plain attribute -> the faulty one)
+FAULTS = {
+    'mlp2_bias_dropped': ('_linear', _product_fault(
+        '2', lambda plain, x, c: ar_kernel._dot(x, c['w_2']))),
+    'mlp1_last_k_slice_dropped': ('_linear', _product_fault(
+        '1', lambda plain, x, c: plain(_zero_last_slice(x), c, '1'))),
+    'row1_gets_row0_out_proj': ('_linear', _product_fault(
+        'o', lambda plain, x, c: _row1_gets_row0(plain(x, c, 'o')))),
+    'key_i_left_out_of_self_attention': ('_self_attention', lambda plain: (
+        lambda q, k, v, i, scale: plain(q, k, v, max(i - 1, 0), scale))),
+    'head_classes_80_94_dropped': ('_linear', _product_fault(
+        'h', lambda plain, x, c: _classes_dropped(plain(x, c, 'h')))),
+}
+
+
+@pytest.fixture(scope='module')
+def check_setup():
+    cfg = PARSeqConfig()
+    model = ar_kernel.check_model(cfg, 0)
+    return model, ar_kernel.check_memory(3, 128, cfg.embed_dim, 1)
+
+
+@pytest.mark.parametrize('fault', FAULTS)
+def test_planted_fault_fails_check(check_setup, monkeypatch, fault):
+    model, memory = check_setup
+    attr, make = FAULTS[fault]
+    with monkeypatch.context() as m:
+        m.setattr(ar_kernel, attr, make(getattr(ar_kernel, attr)))
+        got = ar_kernel.ar_decode_fused_reference(model, memory)
+    want = ar_kernel.ar_decode_fused_reference(model, memory, tokens=got.argmax(-1))
+    rel_max, rel_mean = ar_kernel.check_errors(got, want)
+    assert not ar_kernel.check_passes(got, want)
+    # Caught by both limits, not by one alone.
+    assert rel_max > ar_kernel.CHECK_LIMITS[0] and rel_mean > ar_kernel.CHECK_LIMITS[1]
+
+
+def test_sum_order_noise_passes_check(check_setup, monkeypatch):
+    """The plain version with its products summed in float64 (another order
+    and rounding of the f32 sums, as the kernel's) passes the check."""
+    model, memory = check_setup
+    want = ar_kernel.ar_decode_fused_reference(model, memory)
+    with monkeypatch.context() as m:
+        m.setattr(ar_kernel, '_dot', lambda a, w: (a.to(torch.bfloat16).double()
+                                                   @ w.to(torch.bfloat16).double().t()).float())
+        got = ar_kernel.ar_decode_fused_reference(model, memory, tokens=want.argmax(-1))
+    want = ar_kernel.ar_decode_fused_reference(model, memory, tokens=want.argmax(-1))
+    assert not torch.equal(got, want)
+    assert ar_kernel.check_passes(got, want)
+    assert ar_kernel.check_greedy(got, want)[1] > 0
+
+
+def test_check_model_draws_every_decoder_parameter():
+    cfg = PARSeqConfig(num_tokens=13, max_label_length=7, img_size=(32, 64), embed_dim=64,
+                       enc_num_heads=2, enc_depth=1, dec_num_heads=2)
+    a, b = ar_kernel.check_model(cfg, 5), ar_kernel.check_model(cfg, 5)
+    for (name, pa), pb in zip(a.named_parameters(), b.parameters()):
+        if name.startswith('encoder.'):
+            continue
+        assert torch.equal(pa, pb), name  # numpy draws: the same on every host
+        assert float(pa.detach().std()) > 0.05, name  # biases and LayerNorm parameters included
 
 
 @pytest.fixture
@@ -86,20 +180,43 @@ def cuda_device():
     return torch.device('cuda')
 
 
+def _card_check(model, memory, rows=None):
+    before = ar_kernel.launches
+    got, want, rel_max, rel_mean, passes = ar_kernel.check_run(model, memory, rows=rows)
+    torch.cuda.synchronize()
+    assert ar_kernel.launches == before + 1
+    assert got.shape == (memory.shape[0], model.cfg.num_steps, model.cfg.num_classes)
+    assert passes, f'rel max {rel_max:.3e}, mean {rel_mean:.3e}, limits {ar_kernel.CHECK_LIMITS}'
+
+
+SMALL = dict(num_tokens=13, max_label_length=7, img_size=(32, 64), embed_dim=64,
+             enc_num_heads=2, enc_depth=1, dec_num_heads=2)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('batch', [1, 3, 9])
 def test_cuda_kernel_matches_plain(cuda_device, batch):
     """dh must be 32 for the kernel: D=64 with 2 decoder heads."""
-    cfg = PARSeqConfig(num_tokens=13, max_label_length=7, img_size=(32, 64), embed_dim=64,
-                       enc_num_heads=2, enc_depth=1, dec_num_heads=2)
-    model = PARSeq(cfg)
-    model.init_weights(torch.Generator().manual_seed(batch))
-    model = model.to(cuda_device).eval()
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    memory = torch.randn(batch, 64, 64, generator=gen, device=cuda_device).to(torch.bfloat16)
-    before = ar_kernel.launches
-    got = ar_kernel.ar_decode_fused(model, memory)
-    torch.cuda.synchronize()
-    assert ar_kernel.launches == before + 1
-    want = ar_kernel.ar_decode_fused_reference(model, memory, tokens=got.argmax(-1))
-    _assert_close(got.cpu().numpy(), want.cpu().numpy())
+    model = ar_kernel.check_model(PARSeqConfig(**SMALL), batch).to(cuda_device)
+    _card_check(model, ar_kernel.check_memory(batch, 64, 64, 0, cuda_device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('rows', [1, 2, 4, 8])
+def test_cuda_kernel_small_config_every_rows(cuda_device, rows):
+    """The D = 64, 2-head model at B = 9: a ragged last block at every R."""
+    model = ar_kernel.check_model(PARSeqConfig(**SMALL), 0).to(cuda_device)
+    _card_check(model, ar_kernel.check_memory(9, 64, 64, 1, cuda_device), rows)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('memory_rows', [1, 128, 196])
+@pytest.mark.parametrize('rows', [1, 2, 4, 8])
+def test_cuda_kernel_full_width_every_rows(cuda_device, rows, memory_rows):
+    """PARSeq-S's decoder at B = 9 (R = 8 leaves 7 columns of the last
+    block's n8 operand empty) against M = 1, 128 (PARSeq-S) and 196
+    (patch16-224) memory rows."""
+    cfg = PARSeqConfig()
+    model = ar_kernel.check_model(cfg, 0).to(cuda_device)
+    _card_check(model, ar_kernel.check_memory(9, memory_rows, cfg.embed_dim, 1, cuda_device),
+                rows)
