@@ -45,7 +45,15 @@ from a seed), in phases, each printing its result:
      to 0 just before its reads and must have risen just after; bf16 kernel
      path vs the f32 plain path; then hub.vitstr(dtype=torch.float32) reads
      B = 1 and 7 through B2 in f32 (its count risen), its logits against the
-     f32 plain path;
+     f32 plain path; then the CNN families: hub.crnn(), hub.trba() and
+     create_model('trbc') read B = 1, 7 and 256 in bf16 (they run no TPU
+     kernel: convolutions and products are library calls, the LSTMs step
+     loops); before those reads (and the bias raise they need), each one's
+     B = 7 bf16 logits against its f32 path (TRBA teacher-forced on its f32
+     greedy picks), max |difference| and the agreeing margin relative to
+     max|f32 logits| within the model's own limits (CNN_LIMITS), a planted
+     fault (the last BiLSTM's reverse direction zeroed) failing them, and
+     the f32 path held against the same weights' f32 path on the CPU;
   5. main path (training): parseq_tpu_torch.cli.train trains PARSeq-S
      (+experiment=parseq: batch 384, trainer.microbatches 8, bf16) for 12
      steps on a synthetic LMDB of PIL-rendered words, validating at steps 6
@@ -68,7 +76,18 @@ from a seed), in phases, each printing its result:
      PyTorch library call computing the same function where there is one,
      beside the kernel's bound (B2 at L = 128, 196, 197, 256 and B = 256,
      at L = 197 and B = 1, and in f32 at L = 197; B3 at L = 128, 197); each
-     model's forward in images/s.
+     model's forward in images/s, the CNN families' too;
+  8. main paths of evaluation and benchmarking: a synthetic LMDB of
+     PIL-rendered words, one database per benchmark set at its published
+     size (10,340 words in all), under build/; parseq_tpu_torch.cli.test
+     evaluates PARSeq-S (B1's launch count set to 0 just before and risen
+     to at least a launch a batch after) and CRNN on it at batch 512, prints
+     both tables, the images read per second and the time of it spent
+     waiting on the loader, with the model's load timed apart;
+     parseq_tpu_torch.cli.bench benches PARSeq-S at B = 1 and 256 (B1's
+     count likewise) and CRNN and TRBA at B = 1, each printing the card's
+     name and power limit and its JSON line; then every model's MACs per
+     image (utils/flops.py).
 
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the repository beside it, it fails and prints no result. The last lines
@@ -79,11 +98,13 @@ are the kernel table, the card line of nvidia-smi, and
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import math
 import shutil
 import statistics
+import string
 import sys
 import tempfile
 import time
@@ -129,6 +150,31 @@ F32_MAIN_MARGIN = 1e-3
 # (with +2.0 on the seed-0 weights every PARSeq row decodes to '' at conf
 # ~0.04 on the H100).
 EOS_BIAS = 2.0
+# CTC reads (CRNN, TRBC) keep every one of their W/4 + 1 = 33 positions in
+# the confidence product, so the blank's bias is raised further: with +6.0
+# the blank takes ~0.8 of each position and the product stays ~1e-3.
+BLANK_BIAS = 6.0
+# Phase 4, bf16 vs f32 of the CNN families on the weights as drawn (the
+# reads' bias raise comes after: the bf16 rounding of a logit near 6 would
+# be all the check saw), TRBA teacher-forced on its f32 greedy picks so both
+# paths decode the same ids: (max |bf16 - f32|, the f32 top-2 margin above
+# which greedy picks must agree), each relative to max|f32 logits|, set at
+# about twice the H100's readings on these inputs (CHANGES.md). On uniform
+# noise images a bf16 TPS grid's sub-pixel error moves TRBA's and TRBC's
+# logits most, so they are also held with the TPS in f32, more tightly.
+# A planted fault, the last BiLSTM's reverse direction zeroed (about 0.6 of
+# max|f32 logits|), must fail every limit.
+CNN_LIMITS = {
+    'crnn': {'bf16': (0.02, 0.04)},
+    'trba': {'bf16': (0.12, 0.05), 'bf16, TPS in f32': (0.03, 0.06)},
+    'trbc': {'bf16': (0.3, 0.2), 'bf16, TPS in f32': (0.06, 0.12)},
+}
+# Phase 8: the benchmark sets at their published sizes (the reference
+# README's table, BASELINE.md; IC13_857 and IC15_1811 by their names).
+EVAL_SETS = {'CUTE80': 288, 'IC13_1015': 1015, 'IC13_857': 857, 'IC15_1811': 1811,
+             'IC15_2077': 2077, 'IIIT5k': 3000, 'SVT': 647, 'SVTP': 645}
+EVAL_BATCH = 512
+BENCH_RUNS = (('parseq', 1), ('parseq', 256), ('crnn', 1), ('trba', 1))
 # bf16 main path vs the f32 plain path: the bf16 encoder moves logits by
 # ~1e-2; greedy picks must agree where the f32 top-2 margin exceeds 0.1.
 MAIN_ATOL = 5e-2
@@ -326,6 +372,7 @@ def main():
     from parseq_tpu_torch.models.abinet import ABINet
     from parseq_tpu_torch.models.parseq import PARSeq, PARSeqConfig
     from parseq_tpu_torch.ops import ar_kernel, attention, encoder_kernel, flash_bwd
+    from parseq_tpu_torch.utils.registry import create_model
 
     from experiments import torch_encoder_kernel_bench as enc_bench
     from experiments.torch_encoder_kernel_bench import card_line, cuda_median_ms
@@ -592,6 +639,11 @@ def main():
           f'where the margin > {F32_MAIN_MARGIN} ({n_confident} positions)')
     del bundle, module
 
+    cnn_bundles = {'crnn': hub.crnn(seed=SEED), 'trba': hub.trba(seed=SEED),
+                   'trbc': create_model('trbc', seed=SEED)}
+    for name, bundle in cnn_bundles.items():
+        read_cnn_family(name, bundle, rng)
+
     phase(f'5 main path on cuda: PARSeq-S training through cli.train [{card}]')
     train_info = train_phase(dev, card, main_launches)
 
@@ -701,12 +753,24 @@ def main():
               f'kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library '
               f'(scaled_dot_product_attention backward) {library_ms:.4f} ms, '
               f'bound {b4_bound(B, h, L, dh)[0]:.4f} ms')
-    for name, bundle in bundles.items():
-        x = torch.from_numpy(images[name][TIMED_BATCH]).to(dev)
+    for name, bundle in {**bundles, **cnn_bundles}.items():
+        x = (torch.from_numpy(images[name][TIMED_BATCH]).to(dev) if name in images else
+             torch.rand(TIMED_BATCH, *bundle.img_size, 3, generator=gen, device=dev) * 2 - 1)
         fwd_ms = cuda_median_ms(lambda: bundle(x))
         print(f'forward {name} B={TIMED_BATCH} [{card}]: {fwd_ms:.4f} ms = '
               f'{TIMED_BATCH / fwd_ms * 1e3:.1f} img/s')
     print(f'training PARSeq-S B=384 [{card}]: ' + json.dumps(train_info))
+
+    phase(f'8 main paths on cuda: cli.test (PARSeq-S, CRNN) and cli.bench [{card}]')
+    eval_b1, eval_times = eval_phase(bundles['parseq'], cnn_bundles['crnn'])
+    main_launches['B1'] += eval_b1
+    print(f'cli.test [{card}]: ' + json.dumps(eval_times))
+    from parseq_tpu_torch.cli.bench import per_image_flops
+
+    for name, bundle in {**bundles, **cnn_bundles}.items():
+        x = torch.rand(1, *bundle.img_size, 3, generator=gen, device=dev)
+        print(f'MACs per image {name} (utils/flops.py through the plain paths): '
+              f'{per_image_flops(bundle, x) / 1e9:.4f} G')
 
     b1_ms, b2_ms, b4_ms = b1_bound(TIMED_BATCH, 128, PARSeqConfig()), b2_bound(
         TIMED_BATCH, 197, 6, 384), b4_bound(*B4_SHAPES[0])
@@ -762,6 +826,192 @@ def main():
                                              'kind': torch.cuda.get_device_name(0),
                                              'count': torch.cuda.device_count()}}))
     return 0
+
+
+@contextlib.contextmanager
+def tps_in_f32(module):
+    """TRBA's or TRBC's TPS rectification (localization, grid, sampling) in
+    f32, its result cast back to the compute dtype."""
+    module.tps = lambda images: type(module).tps(module, images.float()).to(images.dtype)
+    try:
+        yield
+    finally:
+        del module.tps
+
+
+def cnn_paths(name, module, x):
+    """A CNN family's logits on the card for images `x`: f32 ('ref'), bf16
+    ('bf16'), for TRBA and TRBC bf16 with the TPS in f32, bf16 with the last
+    BiLSTM's reverse direction zeroed (a planted fault; TPS in f32 where
+    there is one) and f32 on the CPU ('host'). TRBA runs teacher-forced on
+    the f32 path's greedy picks; its greedy f32 logits ('greedy') must equal
+    the forced ones."""
+    kw, out = {}, {}
+    tps = name != 'crnn'
+    faulty = copy.deepcopy(module)
+    with torch.no_grad():
+        last = (faulty.rnn if name == 'crnn' else faulty.SequenceModeling)[-1].rnn
+        for pname, p in last.named_parameters():
+            if pname.endswith('_reverse'):
+                p.zero_()
+    host = copy.deepcopy(module).cpu()
+    with torch.inference_mode():
+        out['ref'] = module(x, dtype=torch.float32)
+        if name == 'trba':
+            picks = out['ref'].argmax(-1)
+            bos = torch.full_like(picks[:, :1], module.cfg.bos_id)
+            kw['text'] = torch.cat([bos, picks[:, :-1]], dim=1)
+            out['greedy'], out['ref'] = out['ref'], module(x, dtype=torch.float32, **kw)
+        out['bf16'] = module(x, dtype=torch.bfloat16, **kw)
+        if tps:
+            with tps_in_f32(module):
+                out['bf16, TPS in f32'] = module(x, dtype=torch.bfloat16, **kw)
+        with tps_in_f32(faulty) if tps else contextlib.nullcontext():
+            out['fault'] = faulty(x, dtype=torch.bfloat16, **kw)
+        out['host'] = host(x.cpu(), dtype=torch.float32, **{k: v.cpu() for k, v in kw.items()})
+    return out
+
+
+def read_cnn_family(name, bundle, rng):
+    """A CNN family's B = 7 bf16 logits against its f32 path within its own
+    limits, which a planted fault must fail, and its f32 path on the card
+    against the CPU's; then it reads B = 1, 7 and 256 in bf16 on the card,
+    launching no TPU kernel."""
+    from parseq_tpu_torch.ops import ar_kernel, attention
+
+    module, tok = bundle.module, bundle.tokenizer
+    ctc = name != 'trba'
+    batches = {B: rng.uniform(-1, 1, (B, *bundle.img_size, 3)).astype(np.float32)
+               for B in BATCHES}
+    out = cnn_paths(name, module, torch.from_numpy(batches[7]).cuda())
+    ref = out['ref']
+    scale = float(ref.abs().max())
+    # f32 against f32 (F32_MAIN_ATOL, F32_MAIN_MARGIN) relative to it as well
+    f32_atol, f32_margin = F32_MAIN_ATOL * scale, F32_MAIN_MARGIN * scale
+    if 'greedy' in out:
+        compare(out['greedy'], ref, f32_atol, f32_margin,
+                f'{name} f32 teacher-forced on its greedy picks')
+    fault_diff = float((out['fault'] - ref).abs().max())
+    readings = []
+    for path, (atol, margin) in CNN_LIMITS[name].items():
+        diff, n_confident = compare(out[path], ref, atol * scale, margin * scale,
+                                    f'{name} {path} path')
+        try:
+            compare(out['fault'], ref, atol * scale, margin * scale,
+                    f'{name} {path} path, planted fault')
+        except AssertionError:
+            pass
+        else:
+            raise AssertionError(f'{name}: the {path} check passes the last BiLSTM with its '
+                                 f'reverse direction zeroed ({fault_diff / scale:.3e} of max|f32 '
+                                 f'logits|)')
+        readings.append(f'{path}: {diff / scale:.3e} (limit {atol}), argmax equal where the f32 '
+                        f'margin > {margin} of it ({n_confident} of {ref[..., 0].numel()} '
+                        f'positions)')
+    host_diff, n_host = compare(ref.cpu(), out['host'], f32_atol, f32_margin,
+                                f'{name} f32 path on the card')
+    print(f'{name}: B=7 vs the f32 path (logits{"" if ctc else ", teacher-forced"}), max|f32 '
+          f'logits| {scale:.4g}, max_abs_diff relative to it: ' + '; '.join(readings) +
+          f'; planted fault (last BiLSTM\'s reverse direction zeroed) {fault_diff / scale:.3e}, '
+          f'fails every limit; f32 on the card vs on the CPU {host_diff / scale:.3e} (limit '
+          f'{F32_MAIN_ATOL}, argmax equal where the margin > {F32_MAIN_MARGIN} of it: {n_host} '
+          f'positions)')
+
+    head = (module.rnn[1].linear if name == 'crnn'
+            else module.Prediction if ctc else module.Prediction.generator)
+    with torch.no_grad():
+        head.bias[tok.blank_id if ctc else tok.eos_id] += BLANK_BIAS if ctc else EOS_BIAS
+    ar_kernel.launches = attention.launches = attention.split_launches = 0
+    positions = bundle.img_size[1] // 4 + 1 if ctc else bundle.cfg.num_steps
+    charset = set(tok.charset)
+    for B, x in batches.items():
+        labels, confs = bundle.read(x)
+        if not len(labels) == len(confs) == B:
+            raise AssertionError(f'{name}: read returned {len(labels)} labels for {B} images')
+        for text, conf in zip(labels, confs):
+            if not (isinstance(text, str) and len(text) <= positions and set(text) <= charset
+                    and 0.0 < conf <= 1.0):
+                raise AssertionError(f'{name}: bad read at B={B}: {text!r} conf={conf}')
+        print(f'{name} B={B}: {labels[:3]} conf {[f"{c:.3g}" for c in confs[:3]]}')
+    launched = ar_kernel.launches + attention.launches + attention.split_launches
+    if launched:
+        raise AssertionError(f'{name}: its reads launched {launched} attention or AR kernels')
+    print(f'{name}: launches no TPU kernel')
+
+
+def eval_phase(parseq_bundle, crnn_bundle):
+    """cli.test evaluates PARSeq-S and CRNN (their phase-4 weights, saved as
+    reference state_dicts) on a synthetic LMDB of the benchmark sets at their
+    published sizes, and cli.bench benches BENCH_RUNS, as a user calls them.
+    Returns B1's launches in these runs and each model's evaluation times."""
+    from parseq_tpu_torch.cli import bench as bench_cli
+    from parseq_tpu_torch.cli import test as test_cli
+    from parseq_tpu_torch.data.module import TEST_BENCHMARK, TEST_BENCHMARK_SUB
+    from parseq_tpu_torch.ops import ar_kernel
+
+    rng = np.random.default_rng(SEED + 2)
+    letters = np.array(list(string.digits + string.ascii_lowercase))
+    sets = sorted(set(TEST_BENCHMARK_SUB + TEST_BENCHMARK))
+    if sorted(EVAL_SETS) != sets:
+        raise AssertionError(f'EVAL_SETS {sorted(EVAL_SETS)} are not the benchmark sets {sets}')
+    batches = sum(-(-n // EVAL_BATCH) for n in EVAL_SETS.values())
+    root = Path(__file__).resolve().parent / 'build'
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix='smoke-eval-', dir=root))
+    b1, timings = 0, {}
+    try:
+        t0 = time.perf_counter()
+        for name in sets:
+            write_lmdb(tmp / 'data' / 'test' / name,
+                       [''.join(rng.choice(letters, rng.integers(3, 11)))
+                        for _ in range(EVAL_SETS[name])])
+        print(f'synthetic LMDB: {len(sets)} benchmark sets, {sum(EVAL_SETS.values())} '
+              f'PIL-rendered words ({EVAL_SETS}) in {time.perf_counter() - t0:.1f} s')
+        for family, bundle in (('parseq', parseq_bundle), ('crnn', crnn_bundle)):
+            ckpt = tmp / f'{family}-smoke.pt'
+            torch.save({k: v.cpu() for k, v in bundle.module.state_dict().items()}, ckpt)
+            ar_kernel.launches = 0
+            t0 = time.perf_counter()
+            results, timing = test_cli.main([str(ckpt), '--data_root', str(tmp / 'data'),
+                                             '--device', 'cuda', '--batch_size', str(EVAL_BATCH)])
+            wall = time.perf_counter() - t0
+            launches = ar_kernel.launches
+            if family == 'parseq':
+                if launches < batches:
+                    raise AssertionError(f'cli.test PARSeq-S launched B1 {launches} times, '
+                                         f'expected >= {batches} (one a batch)')
+                b1 += launches
+            if sorted(results) != sets or not all(
+                    r.num_samples == EVAL_SETS[name] and 0.0 <= r.accuracy <= 100.0
+                    and 0.0 <= r.ned <= 100.0 and 0.0 < r.confidence <= 100.0
+                    and 0.0 <= r.label_length <= 33 for name, r in results.items()):
+                raise AssertionError(f'cli.test {family}: {results}')
+            if '| Combined' not in Path(str(ckpt) + '.log.txt').read_text():
+                raise AssertionError(f'cli.test {family}: no results table in its log file')
+            img_s = timing['images'] / timing['eval_s']
+            timings[family] = dict(timing, batches=batches, img_per_s=img_s, wall_s=wall)
+            print(f'cli.test {family}: {timing["images"]} images in {batches} batches of <= '
+                  f'{EVAL_BATCH}, read in {timing["eval_s"]:.3f} s = {img_s:.1f} img/s, '
+                  f'{timing["loader_s"]:.3f} s of it waiting on the loader '
+                  f'({timing["first_batch_s"]:.3f} s for the first batch of each set); model '
+                  f'load {timing["load_s"]:.3f} s; wall {wall:.3f} s; B1 launches {launches}')
+        keys = ['model', 'params_M', 'flops_per_img_G', 'batch_size', 'latency_ms_median',
+                'latency_ms_iqr', 'throughput_img_s']
+        for model, B in BENCH_RUNS:
+            ar_kernel.launches = 0
+            (r,) = bench_cli.main(['--model', model, '--batch_size', str(B)])
+            launches = ar_kernel.launches
+            if model == 'parseq':
+                if launches < 1:
+                    raise AssertionError(f'cli.bench PARSeq-S B={B} did not launch B1')
+                b1 += launches
+            if not (list(r) == keys and r['batch_size'] == B and r['flops_per_img_G']
+                    and all(math.isfinite(r[k]) and r[k] > 0 for k in keys[1:])):
+                raise AssertionError(f'cli.bench {model} B={B}: {r}')
+            print(f'cli.bench {model} B={B}: B1 launches {launches}')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return b1, timings
 
 
 def train_phase(dev, card, main_launches):

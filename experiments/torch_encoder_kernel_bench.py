@@ -31,7 +31,6 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), '..'))
@@ -40,6 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from parseq_tpu_torch.cli.bench import card_line
 from parseq_tpu_torch.models import vit
 from parseq_tpu_torch.ops import encoder_kernel
 
@@ -140,12 +140,6 @@ def cuda_median_ms(fn, runs=RUNS, warmup=3, calls=1):
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
-
-
-def card_line():
-    out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def main(argv=None):

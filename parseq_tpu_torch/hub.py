@@ -2,7 +2,7 @@
 
     from parseq_tpu_torch import hub
     model = hub.parseq()                                  # random weights, cuda
-    model = hub.vitstr(seed=1)                            # also parseq_patch16_224, abinet
+    model = hub.vitstr(seed=1)                 # also parseq_patch16_224, abinet, crnn, trba
     model = hub.parseq(pretrained='weights/parseq-bb5792a6.pt', device='cuda')
     model = hub.parseq(pretrained=True)                   # released weights, from the cache
     labels, confidences = model.read(images_nhwc)
@@ -13,7 +13,8 @@ weights of the model, found offline in the checksum cache
 (`utils/pretrained.py`: $PARSEQ_TPU_CACHE, ~/.cache/parseq_tpu/checkpoints,
 torch.hub's cache). Only downloading them needs the network, and the port
 does not download: a missing file raises naming the file and the
-directories searched.
+directories searched. As in the JAX package there is no trbc factory: TRBC
+is `registry.create_model('trbc')` or a checkpoint.
 """
 
 from __future__ import annotations
@@ -37,18 +38,10 @@ def _factory(experiment):
     return fn
 
 
-def _not_ported(name, item):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(f'hub.{name} is not ported to PyTorch yet ({item})')
-
-    fn.__name__ = name
-    return fn
-
-
 parseq = _factory('parseq')
 parseq_tiny = _factory('parseq-tiny')
 parseq_patch16_224 = _factory('parseq-patch16-224')
 vitstr = _factory('vitstr')
 abinet = _factory('abinet')
-crnn = _not_ported('crnn', 'ROADMAP queue A item 16')
-trba = _not_ported('trba', 'ROADMAP queue A item 16')
+crnn = _factory('crnn')
+trba = _factory('trba')

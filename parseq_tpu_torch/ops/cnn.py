@@ -1,13 +1,13 @@
-"""Convolution and eval-mode batch norm (port of parseq_tpu/ops/cnn.py:
-conv2d, batchnorm).
+"""Convolution, max pooling and eval-mode batch norm (port of
+parseq_tpu/ops/cnn.py: conv2d, max_pool2d, batchnorm).
 
 The JAX package is NHWC; inside the port's CNNs activations are NCHW, as
 PyTorch keeps them, and the parameters are those of nn.Conv2d and
 nn.BatchNorm2d so reference state_dicts load. The rounding points are the
 JAX package's: the convolution runs in x's dtype (f32 accumulation) and
 its bias is added after the cast; batch-norm statistics are applied in
-float32 and the result cast back. `max_pool2d` comes with CRNN and TRBA
-(ROADMAP queue A item 16).
+float32 and the result cast back. Max pooling is torch's MaxPool2d: floor
+mode, padding with -inf.
 """
 
 from __future__ import annotations
@@ -23,6 +23,12 @@ def conv2d(x, conv: nn.Conv2d):
     if conv.bias is not None:
         y = y + conv.bias.to(x.dtype)[:, None, None]
     return y
+
+
+def max_pool2d(x, kernel, stride=None, padding=(0, 0)):
+    """x (B, C, H, W) -> max over `kernel` windows, torch MaxPool2d semantics
+    (floor mode, -inf padding); stride defaults to the kernel."""
+    return F.max_pool2d(x, kernel, stride or kernel, padding)
 
 
 def batchnorm(x, bn: nn.BatchNorm2d):

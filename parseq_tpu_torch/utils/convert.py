@@ -1,12 +1,15 @@
 """JAX parameters -> reference-schema state_dicts (inverses of
 parseq_tpu/utils/torch_convert.py: convert_vit_encoder, convert_parseq,
-convert_vitstr and convert_abinet).
+convert_vitstr, convert_abinet, convert_crnn, convert_trba and
+convert_trba_attention).
 
 This is how weights move from the JAX package to the port:
 
     sd = state_dict_from_jax(params)        # params: parseq.init / convert_parseq tree
     sd = vitstr_state_dict_from_jax(params)           # vitstr.init tree
     sd = abinet_state_dict_from_jax(params, stats)    # abinet.init (params, stats)
+    sd = crnn_state_dict_from_jax(params, stats)      # crnn.init (params, stats)
+    sd = trba_state_dict_from_jax(params, stats, use_ctc)  # trba.init (params, stats)
     model.load_state_dict(sd, strict=True)
 
 Per leaf: JAX linear weights (in, out) are transposed to torch (out, in);
@@ -15,7 +18,7 @@ separate q/k/v projections are packed into `qkv` (timm) and `in_proj_*`
 in (ph, pw, C) order, is permuted back to the Conv2d layout (D, C, ph, pw);
 the depth-stacked encoder blocks are unstacked; conv kernels (kh, kw, Cin,
 Cout) become (Cout, Cin, kh, kw); batch-norm statistics become running_mean /
-running_var. Leaves may be numpy or jax arrays (anything np.asarray takes);
+running_var; LSTM (in, 4H) / (H, 4H) weights become weight_ih / weight_hh. Leaves may be numpy or jax arrays (anything np.asarray takes);
 no jax import is needed.
 """
 
@@ -197,4 +200,72 @@ def abinet_state_dict_from_jax(params, stats, *, img_size=(32, 128), max_label_l
     _lin(sd, 'language.cls', lang['cls'])
     _lin(sd, 'alignment.w_att', params['alignment']['w_att'])
     _lin(sd, 'alignment.cls', params['alignment']['cls'])
+    return sd
+
+
+def _lstm_dir(sd, prefix, p, suffix=''):
+    sd[f'{prefix}.weight_ih{suffix}'] = _t(np.asarray(p['wih']).T)
+    sd[f'{prefix}.weight_hh{suffix}'] = _t(np.asarray(p['whh']).T)
+    sd[f'{prefix}.bias_ih{suffix}'] = _t(p['bih'])
+    sd[f'{prefix}.bias_hh{suffix}'] = _t(p['bhh'])
+
+
+def _bilstm(sd, prefix, p):
+    """rnn.bilstm params -> reference BidirectionalLSTM keys."""
+    _lstm_dir(sd, f'{prefix}.rnn', p['fwd'], '_l0')
+    _lstm_dir(sd, f'{prefix}.rnn', p['bwd'], '_l0_reverse')
+    _lin(sd, f'{prefix}.linear', p['linear'])
+
+
+def crnn_state_dict_from_jax(params, stats):
+    """JAX CRNN (params, stats) -> reference CRNN state_dict."""
+    sd = {}
+    bn_stats = iter(stats['bn'])
+    for i, c in enumerate(params['cnn']):
+        _conv(sd, f'cnn.conv{i}', c['conv'])
+        if 'bn' in c:
+            _bn(sd, f'cnn.batchnorm{i}', c['bn'], next(bn_stats))
+    _bilstm(sd, 'rnn.0', params['rnn0'])
+    _bilstm(sd, 'rnn.1', params['rnn1'])
+    return sd
+
+
+def trba_state_dict_from_jax(params, stats, use_ctc=False):
+    """JAX TRBA / TRBC (params, stats) -> reference state_dict, without the
+    GridGenerator buffers (models/trba.py fills them in)."""
+    sd = {}
+    loc, loc_s = params['loc'], stats['loc']
+    pre = 'Transformation.LocalizationNetwork'
+    for i, si in enumerate((0, 4, 8, 12)):
+        _conv_bn(sd, f'{pre}.conv.{si}', f'{pre}.conv.{si + 1}', loc[f'conv{i}'],
+                 loc_s[f'conv{i}'])
+    _lin(sd, f'{pre}.localization_fc1.0', loc['fc1'])
+    _lin(sd, f'{pre}.localization_fc2', loc['fc2'])
+
+    rn, rn_s = params['resnet'], stats['resnet']
+    cn = 'FeatureExtraction.ConvNet'
+    for name in ('conv0_1', 'conv0_2', 'conv1', 'conv2', 'conv3', 'conv4_1', 'conv4_2'):
+        key = {'conv0_1': 'stem1', 'conv0_2': 'stem2'}.get(name, name)
+        _conv_bn(sd, f'{cn}.{name}', f'{cn}.bn{name.removeprefix("conv")}', rn[key], rn_s[key])
+    for li in range(1, 5):
+        for bi, (bp, bs) in enumerate(zip(rn[f'layer{li}'], rn_s[f'layer{li}'])):
+            b = f'{cn}.layer{li}.{bi}'
+            _conv_bn(sd, f'{b}.conv1', f'{b}.bn1', bp['conv1'], bs['conv1'])
+            _conv_bn(sd, f'{b}.conv2', f'{b}.bn2', bp['conv2'], bs['conv2'])
+            if 'down' in bp:
+                _conv_bn(sd, f'{b}.downsample.0', f'{b}.downsample.1', bp['down'], bs['down'])
+
+    _bilstm(sd, 'SequenceModeling.0', params['rnn0'])
+    _bilstm(sd, 'SequenceModeling.1', params['rnn1'])
+    pred = params['pred']
+    if use_ctc:
+        _lin(sd, 'Prediction', pred)
+        return sd
+    ac = 'Prediction.attention_cell'
+    _lin(sd, f'{ac}.i2h', pred['i2h'])
+    _lin(sd, f'{ac}.h2h', pred['h2h'])
+    _lin(sd, f'{ac}.score', pred['score'])
+    _lstm_dir(sd, f'{ac}.rnn', pred['cell'])
+    _lin(sd, 'Prediction.generator', pred['generator'])
+    sd['Prediction.char_embeddings.weight'] = _t(pred['char_embeddings']['w'])
     return sd

@@ -1,6 +1,6 @@
 """Model registry: experiment name -> config + module + inference bundle
-(port of parseq_tpu/utils/registry.py: the PARSeq, ViTSTR and ABINet
-families; CRNN and TRBA/TRBC raise until ROADMAP queue A item 16).
+(port of parseq_tpu/utils/registry.py: the PARSeq, ViTSTR, CRNN, TRBA,
+TRBC and ABINet families).
 
 Configs are composed from the repository's `configs/` groups by the port's
 `utils/config.py`. Checkpoints: reference PyTorch `.pt` state_dicts load
@@ -18,10 +18,12 @@ import numpy as np
 import torch
 
 from parseq_tpu_torch.data.charset import CharsetAdapter
-from parseq_tpu_torch.data.tokenizer import Tokenizer
+from parseq_tpu_torch.data.tokenizer import CTCTokenizer, Tokenizer
 from parseq_tpu_torch.utils import config as config_lib
 from parseq_tpu_torch.models.abinet import ABINet, ABINetConfig
+from parseq_tpu_torch.models.crnn import CRNN, CRNNConfig
 from parseq_tpu_torch.models.parseq import PARSeq, PARSeqConfig
+from parseq_tpu_torch.models.trba import TRBA, TRBAConfig
 from parseq_tpu_torch.models.vitstr import ViTSTR, ViTSTRConfig
 
 
@@ -133,6 +135,33 @@ def _build_vitstr(model_cfg: dict):
     return cfg, tok
 
 
+def _build_crnn(model_cfg: dict):
+    tok = CTCTokenizer(model_cfg['charset_train'])
+    cfg = CRNNConfig(
+        num_tokens=len(tok),
+        max_label_length=model_cfg.get('max_label_length', 25),
+        img_size=tuple(model_cfg.get('img_size', (32, 128))),
+        hidden_size=model_cfg.get('hidden_size', 256),
+        leaky_relu=model_cfg.get('leaky_relu', False),
+    )
+    return cfg, tok
+
+
+def _build_trba(model_cfg: dict, use_ctc=False):
+    charset = model_cfg['charset_train']
+    tok = CTCTokenizer(charset) if use_ctc else Tokenizer(charset)
+    cfg = TRBAConfig(
+        num_tokens=len(tok),
+        max_label_length=model_cfg.get('max_label_length', 25),
+        img_size=tuple(model_cfg.get('img_size', (32, 128))),
+        num_fiducial=model_cfg.get('num_fiducial', 20),
+        output_channel=model_cfg.get('output_channel', 512),
+        hidden_size=model_cfg.get('hidden_size', 256),
+        use_ctc=use_ctc,
+    )
+    return cfg, tok
+
+
 def _build_abinet(model_cfg: dict):
     tok = Tokenizer(model_cfg['charset_train'])
     cfg = ABINetConfig(
@@ -163,15 +192,15 @@ def _build_abinet(model_cfg: dict):
 _BUILDERS = {
     'parseq': (_build_parseq, PARSeq),
     'vitstr': (_build_vitstr, ViTSTR),
+    'crnn': (_build_crnn, CRNN),
+    'trba': (_build_trba, TRBA),
+    'trbc': (lambda model_cfg: _build_trba(model_cfg, use_ctc=True), TRBA),
     'abinet': (_build_abinet, ABINet),
 }
 
 
 def _bundle(name, model_cfg, *, seed=0, dtype=torch.bfloat16, device='cuda', state_dict=None):
     family = _family(name)
-    if family not in _BUILDERS:
-        raise NotImplementedError(
-            f"Model family '{family}' is not ported to PyTorch yet (ROADMAP queue A item 16)")
     build, module_cls = _BUILDERS[family]
     tracked = _TrackedCfg(model_cfg)
     cfg, tok = build(tracked)

@@ -10,7 +10,8 @@ from parseq_tpu.utils import registry as jregistry
 from parseq_tpu_torch import hub
 from parseq_tpu_torch.cli import read as read_cli
 from parseq_tpu_torch.utils import registry
-from parseq_tpu_torch.utils.convert import (abinet_state_dict_from_jax, state_dict_from_jax,
+from parseq_tpu_torch.utils.convert import (abinet_state_dict_from_jax, crnn_state_dict_from_jax,
+                                            state_dict_from_jax, trba_state_dict_from_jax,
                                             vitstr_state_dict_from_jax)
 
 SMALL = dict(embed_dim=48, enc_num_heads=4, enc_depth=2, dec_num_heads=6, max_label_length=10)
@@ -47,9 +48,18 @@ def test_parseq_tiny_factory_composes_its_experiment():
 
 
 @pytest.mark.parametrize('name', ['crnn', 'trba'])
-def test_unported_factories_name_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        getattr(hub, name)()
+def test_cnn_factories_build_and_read(name):
+    """hub.crnn and hub.trba build their experiments and read on the CPU."""
+    narrow = {'crnn': dict(hidden_size=32),
+              'trba': dict(hidden_size=16, output_channel=32, max_label_length=6)}[name]
+    model = getattr(hub, name)(device='cpu', dtype=torch.float32, **narrow)
+    assert (model.name, model.img_size, type(model.module).__name__) == (
+        name, (32, 128), name.upper())
+    images = np.random.default_rng(5).uniform(-1, 1, (2, 32, 128, 3)).astype(np.float32)
+    labels, conf = model.read(images)
+    assert len(labels) == len(conf) == 2
+    assert all(set(t) <= set(model.tokenizer.charset) for t in labels)
+    assert all(0.0 <= c <= 1.0 for c in conf)
 
 
 # Small widths of each family at its experiment's image size; every encoder
@@ -61,9 +71,21 @@ FAMILIES = {
     'abinet': dict(nhead=4, d_inner=128, v_num_layers=1, l_num_layers=1, iter_size=2,
                    max_label_length=10),
 }
+# The CNN families at narrow widths (CRNN's and TRBA's convolutions keep
+# their published channels where the config does not set them).
+FAMILIES.update({
+    'crnn': dict(hidden_size=32),
+    'trba': dict(hidden_size=16, output_channel=32, max_label_length=6),
+    'trbc': dict(hidden_size=16, output_channel=32, max_label_length=6),
+})
 
 
 def _port_state_dict(experiment, jb):
+    if experiment == 'crnn':
+        return crnn_state_dict_from_jax(jb.params['params'], jb.params['stats'])
+    if experiment in ('trba', 'trbc'):
+        return trba_state_dict_from_jax(jb.params['params'], jb.params['stats'],
+                                        use_ctc=experiment == 'trbc')
     if experiment == 'vitstr':
         return vitstr_state_dict_from_jax(jb.params, jb.cfg.patch_size)
     if experiment == 'abinet':
@@ -75,8 +97,8 @@ def _port_state_dict(experiment, jb):
 
 @pytest.mark.parametrize('experiment', sorted(FAMILIES))
 def test_family_reads_like_jax_bundle(experiment):
-    """create_model for the slice-2 families: the same weights and images
-    give the JAX ModelBundle's labels, confidences to f32 noise."""
+    """create_model for the families beyond PARSeq-S: the same weights and
+    images give the JAX ModelBundle's labels, confidences to f32 noise."""
     overrides = FAMILIES[experiment]
     jb = jregistry.create_model(experiment, seed=0, dtype=jnp.float32, **overrides)
     tb = registry.create_model(experiment, device='cpu', dtype=torch.float32, **overrides)

@@ -25,6 +25,9 @@ print(','.join(shared))
 """
 # The modules that hold a kernel's wrapper: the walk must reach every one.
 KERNEL_MODULES = ('ar_kernel', 'attention', 'flash_bwd', 'encoder_kernel')
+# The CNN families' read path, the evaluation and the bench CLI.
+READ_MODULES = ('ops.rnn', 'ops.grid_sample', 'models.crnn', 'models.trba', 'train.evaluate',
+                'cli.test', 'cli.bench', 'utils.flops')
 
 
 def test_port_imports_without_jax():
@@ -33,6 +36,7 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     walked, shared = out.stdout.split('\n')[:2]
     assert {f'parseq_tpu_torch.ops.{m}' for m in KERNEL_MODULES} <= set(walked.split(','))
+    assert {f'parseq_tpu_torch.{m}' for m in READ_MODULES} <= set(walked.split(','))
     assert shared == '', f'the port loaded modules of the JAX package: {shared}'
 
 
