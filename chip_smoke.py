@@ -20,7 +20,8 @@ from a seed), in phases, each printing its result:
      attention) at (h, D) = (6, 384) and L = 1, 5, 16, 17, 128, 129, 196
      (patch16-224), 197 (ViTSTR), 256, 416, and at ABINet's (256, 8, 512),
      and B3 (head-split attention) at (BH, L, dh) = (6B, L, 64) for the same
-     L, all at B = 1, 7, 256, in bf16 and f32, on the shared card check
+     L, all at B = 1, 7, 256 (B2 also at 48, ViTSTR training's microbatch,
+     and 384, the validation batch), in bf16 and f32, on the shared card check
      (ops/attention.py: check_operands, scores spread by ~2.75; |kernel -
      plain| relative to max|plain| within CHECK_LIMITS in max and mean),
      strided and contiguous operands bit-identical; B4 (attention backward)
@@ -32,7 +33,8 @@ from a seed), in phases, each printing its result:
      contiguous operands bit-identical; B3's gradients at L = 128 and 197
      through its autograd Function against autograd of its plain version (a
      wiring check: both backwards are that autograd); B2's gradients
-     likewise under autograd at ViTSTR's (197, 6, 384); B5 (all
+     likewise under autograd at ViTSTR's (197, 6, 384), B = 7 and 48, its
+     forward there within CHECK_LIMITS; B5 (all
      encoder blocks) at PARSeq-S's full geometry, depth 12, B = 1, 7, 256
      (and depth 1, and L = 64 and 65 at B = 7: one or both warpgroups of a
      block hold rows), on weights where attention decides the output, its
@@ -87,7 +89,23 @@ from a seed), in phases, each printing its result:
      parseq_tpu_torch.cli.bench benches PARSeq-S at B = 1 and 256 (B1's
      count likewise) and CRNN and TRBA at B = 1, each printing the card's
      name and power limit and its JSON line; then every model's MACs per
-     image (utils/flops.py).
+     image (utils/flops.py);
+  9. main paths of training the other families: parseq_tpu_torch.cli.train
+     trains ViTSTR, CRNN, TRBC, TRBA, ABINet (staged: pretraining, then
+     joint after the alignment redraw) and ABINet's language model alone
+     (tune_abinet-lm) at their experiments' full width, batch 384,
+     microbatches 8, bf16, for 4 steps each on a synthetic LMDB, validating
+     at steps 2 and 4; metrics, checkpoints (last, train_state, swa), a
+     reload on cuda and a read of 7 images; B2's launch count set to 0 just
+     before each run and read just after (ViTSTR's training >= 12 x 8 a
+     step; ABINet's validations > 0, its steps with dropout none, checked
+     on a timed step); each family's step (ABINet in its pretraining and
+     its joint stage) on the card against the same step on the CPU (same
+     state_dict, a numpy batch of 8, dropout 0), in f32 with TF32 off and
+     in float64 (float64_mode), within CARD_CPU_LIMITS and CARD_CPU_TRUNK,
+     which a planted fault (batch norms left in eval mode on the card) must
+     fail; each family's step time (median of 4 after a warm-up), img/s,
+     peak memory, device-busy share and kernel launches a step.
 
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the repository beside it, it fails and prints no result. The last lines
@@ -117,6 +135,9 @@ import torch.nn.functional as F
 
 SEED = 0
 BATCHES = (1, 7, 256)
+# B2 also at its training paths' batches: ViTSTR's microbatch (384 / 8) and
+# the validation batch.
+B2_BATCHES = BATCHES + (48, 384)
 TIMED_BATCH = 256
 BACK_TO_BACK = 10  # calls per event pair when timing B2, B3 and B4
 # B1 vs plain: the shared card check of ops/ar_kernel.py (check_model: every
@@ -207,6 +228,45 @@ TRAIN_STEPS = 12
 TRAIN_WORDS = 4 * 384
 VAL_WORDS = 384
 STEP_TIMED = 6
+# Phase 9: the other families' training through cli.train (ABINet's
+# language model alone as tune_abinet-lm), and their step on the card
+# against the CPU, both devices fed the same host-normalised images. In
+# float64 (float64_mode) each parameter's gradient within
+# CARD_CPU_LIMITS[float64]['grad'] of its largest (or of 'floor' of the
+# model's largest gradient, if more) and the batch-norm statistics within
+# 'stats': rounding there is far below any ReLU or max-pool decision (the
+# H100 read <= 8.1e-13). In f32, TF32 off, the same with the f32 limits,
+# except where a trunk of ReLU gates behind train-mode batch norms
+# (CARD_CPU_TRUNK: the CNNs, ABINet's ResNet, vision transformer and
+# position attention, and its language model's ReLU MLPs) sums a gradient:
+# the two devices' rounding, grown over tens of layers, puts a few gates on
+# the other side and moves such a gradient by a percent or more (ABINet's
+# language model alone read 1.46e-2 of its largest; the JAX package's f32
+# step is as far from a float64 one as the port's,
+# experiments/torch_train_f64_witness.py). A trunk parameter that misses the
+# limit is held by its relative L2 difference within its family's bound,
+# about 3x the worst reading on the H100 (PERF.md; CNN trunks 1.59e-2,
+# ABINet's language model alone 1.5e-3). TRBA and TRBC read smooth images:
+# on per-pixel noise the TPS sampling turns the grid's last-bit rounding
+# into whole-pixel changes. ABINet is compared in both stages; in the joint
+# stage the card's language model is fed the CPU's inputs (probabilities
+# and lengths, which the step detaches), as a length read from an argmax of
+# random logits may flip between devices. The planted fault moves
+# gradients by more than their largest.
+FAMILY_RUNS = ('vitstr', 'crnn', 'trbc', 'trba', 'abinet', 'tune_abinet-lm')
+FAMILY_STEPS = 4
+FAMILY_TIMED = 4
+CARD_CPU_BATCH = 8
+CARD_CPU_LIMITS = {torch.float32: {'grad': 1e-3, 'floor': 1e-2, 'stats': 1e-4},
+                   torch.float64: {'grad': 1e-8, 'floor': 1e-2, 'stats': 1e-10}}
+# model name -> (trunk prefixes, bound on a trunk gradient's relative L2), f32
+_LM_TRUNK = ('language.model.', 'language.proj.')
+CARD_CPU_TRUNK = {'crnn': (('cnn.',), 5e-2),
+                  'trba': (('Transformation.', 'FeatureExtraction.'), 5e-2),
+                  'trbc': (('Transformation.', 'FeatureExtraction.'), 5e-2),
+                  'abinet': (('vision.backbone.', 'vision.attention.', *_LM_TRUNK), 5e-2),
+                  'abinet-lm': (_LM_TRUNK, 5e-3)}
+BATCH_NORM_FAMILIES = ('crnn', 'trba', 'trbc', 'abinet')  # the planted fault's
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, bf16 tensor
 # cores, f32 outside the tensor cores.
 HBM_BPS = 3.35e12
@@ -433,8 +493,8 @@ def main():
         for dtype in (torch.bfloat16, torch.float32):
             limits = attention.CHECK_LIMITS[dtype]
             worst = {'B2': (0.0, 0.0), 'B3': (0.0, 0.0)}
-            for (L, h, D), B in ((shape, B) for shape in CHECK_SHAPES for B in BATCHES):
-                for kernel in ('B2', 'B3') if h == 6 else ('B2',):
+            for (L, h, D), B in ((shape, B) for shape in CHECK_SHAPES for B in B2_BATCHES):
+                for kernel in ('B2', 'B3') if h == 6 and B in BATCHES else ('B2',):
                     if kernel == 'B2':
                         q, k, v = attention.check_operands(B, L, D, 64, 0.125, gen, dtype)
                         fn = lambda *t: attention.fused_attention_nosplit(*t, h, 0.125)
@@ -462,7 +522,8 @@ def main():
                         else:
                             b3_err = max(b3_err, err)
             print(f'B2 and B3 {str(dtype)[6:]}, L in {CHECK_LENGTHS} (and ABINet\'s (256, 8, 512) '
-                  f'for B2), B in {BATCHES}: q, k, v strided views of one packed projection and '
+                  f'for B2), B in {BATCHES} (B2 also {B2_BATCHES[len(BATCHES):]}): q, k, v strided '
+                  f'views of one packed projection and '
                   f'contiguous (equal); worst |diff| / max|plain| B2 max {worst["B2"][0]:.3e} '
                   f'mean {worst["B2"][1]:.3e}, B3 max {worst["B3"][0]:.3e} mean '
                   f'{worst["B3"][1]:.3e} (limits {limits[0]:.3g}, {limits[1]:.3g}) ok')
@@ -507,18 +568,22 @@ def main():
             grad_errs = grad_check(f'B3 (BH, L, dh)={(6 * B, L, 64)}', got, want, (q, k, v), g)
             print(f'B3 (BH, L, dh)={(6 * B, L, 64)}: gradients through the autograd Function, '
                   f'dq/dk/dv max_abs_err {"/".join(f"{e:.3e}" for e in grad_errs)} ok')
-    qkv = torch.randn(7, 197, 3 * 384, generator=gen, device=dev).to(torch.bfloat16)
-    qkv.requires_grad_()
-    g = torch.randn(7, 197, 384, generator=gen, device=dev).to(torch.bfloat16)
-    q, k, v = qkv[..., :384], qkv[..., 384:768], qkv[..., 768:]
-    before = attention.launches
-    got = attention.fused_attention_nosplit(q, k, v, 6, 0.125)
-    if attention.launches != before + 1:
-        raise AssertionError('B2 under autograd did not launch its kernel')
-    (err,) = grad_check('B2 (B, L, h, D)=(7, 197, 6, 384)', got,
-                        attention.fused_attention_nosplit_reference(q, k, v, 6, 0.125), (qkv,), g)
-    print(f'B2 under autograd (B, L, h, D)=(7, 197, 6, 384), q, k, v views of a packed leaf: '
-          f'kernel forward, gradient max_abs_err {err:.3e} ok')
+    for B in (7, 48):  # and ViTSTR training's microbatch
+        qkv = torch.randn(B, 197, 3 * 384, generator=gen, device=dev).to(torch.bfloat16)
+        qkv.requires_grad_()
+        g = torch.randn(B, 197, 384, generator=gen, device=dev).to(torch.bfloat16)
+        q, k, v = qkv[..., :384], qkv[..., 384:768], qkv[..., 768:]
+        before = attention.launches
+        got = attention.fused_attention_nosplit(q, k, v, 6, 0.125)
+        if attention.launches != before + 1:
+            raise AssertionError('B2 under autograd did not launch its kernel')
+        want = attention.fused_attention_nosplit_reference(q, k, v, 6, 0.125)
+        if not attention.check_passes(got, want):
+            raise AssertionError(f'B2 under autograd (B={B}) disagrees with its plain version: '
+                                 f'|diff| / max|plain| {attention.check_errors(got, want)}')
+        (err,) = grad_check(f'B2 (B, L, h, D)=({B}, 197, 6, 384)', got, want, (qkv,), g)
+        print(f'B2 under autograd (B, L, h, D)=({B}, 197, 6, 384), q, k, v views of a packed '
+              f'leaf: kernel forward within CHECK_LIMITS, gradient max_abs_err {err:.3e} ok')
 
     blocks = enc_bench.make_blocks(B5_DEPTH, SEED).to(dev)
     b5_ops = {depth: encoder_kernel.stack_block_params(blocks[:depth]) for depth in (1, B5_DEPTH)}
@@ -771,6 +836,12 @@ def main():
         x = torch.rand(1, *bundle.img_size, 3, generator=gen, device=dev)
         print(f'MACs per image {name} (utils/flops.py through the plain paths): '
               f'{per_image_flops(bundle, x) / 1e9:.4f} G')
+    del bundles, cnn_bundles, b1_models, memories, b5_ops
+    torch.cuda.empty_cache()
+
+    phase(f'9 main paths on cuda: ViTSTR, CRNN, TRBC, TRBA, ABINet and its language model '
+          f'train through cli.train [{card}]')
+    family_info = train_families_phase(card, main_launches)
 
     b1_ms, b2_ms, b4_ms = b1_bound(TIMED_BATCH, 128, PARSeqConfig()), b2_bound(
         TIMED_BATCH, 197, 6, 384), b4_bound(*B4_SHAPES[0])
@@ -790,6 +861,8 @@ def main():
          'source': 'parseq_tpu_torch/csrc/attention.cu',
          'replaces': 'parseq_tpu/ops/attention.py:146',
          'launches': main_launches['B2'], 'max_abs_err': b2_err,
+         'launches_vitstr_training': family_info['b2_vitstr_cli'],
+         'launches_abinet_validation': family_info['b2_abinet_cli'],
          'ms': timed['B2', 197][0], 'plain_ms': timed['B2', 197][1],
          'bound_ms': b2_ms[0], 'bound_us': b2_ms[0] * 1e3, 'bound_by': b2_ms[1],
          'library_ms': timed['B2', 197][2], 'at': f'B={TIMED_BATCH} L=197 h=6 D=384 (ViTSTR)'},
@@ -1206,6 +1279,339 @@ def train_phase(dev, card, main_launches):
           f'plain {[round(t, 2) for t in times["plain"]]}')
     return info
 
+
+
+def _bn_buffers(model):
+    return {n: b.detach().double().cpu() for n, b in model.named_buffers()
+            if n.endswith(('running_mean', 'running_var'))}
+
+
+@contextlib.contextmanager
+def float64_mode():
+    """While open, `.float()` leaves a float64 tensor as it is (the port's
+    layers take statistics, softmaxes and logits in float32 by `.float()`),
+    and encoder attention takes its plain path (the kernels are bf16 and
+    f32): a float64 model computes in float64 throughout."""
+    from parseq_tpu_torch.ops import attention
+
+    to_float = torch.Tensor.float
+    torch.Tensor.float = lambda self, *a, **k: (self if self.dtype == torch.float64
+                                                else to_float(self, *a, **k))
+    try:
+        with attention.force_einsum(), attention.plain_backward():
+            yield
+    finally:
+        torch.Tensor.float = to_float
+
+
+def smooth_images(rng, n, h, w, cell=8):
+    """uint8 images that vary over `cell` pixels, as text crops do: noise at
+    1/cell of the resolution, upsampled bilinearly."""
+    lo = rng.uniform(0, 255, (n, h // cell + 2, w // cell + 2, 3))
+    y, x = np.linspace(0, h // cell + 1, h), np.linspace(0, w // cell + 1, w)
+    y0, x0 = np.minimum(y.astype(int), h // cell), np.minimum(x.astype(int), w // cell)
+    wy, wx = (y - y0)[None, :, None, None], (x - x0)[None, None, :, None]
+    rows = lo[:, y0] * (1 - wy) + lo[:, y0 + 1] * wy
+    return np.rint(rows[:, :, x0] * (1 - wx) + rows[:, :, x0 + 1] * wx).astype(np.uint8)
+
+
+def card_vs_cpu(experiment, fault=False, joint=False, dtype=torch.float32):
+    """One train step of `experiment` (dropout 0, lr 0) in `dtype` (float32,
+    TF32 off, or float64: float64_mode) on the CPU and on cuda from the
+    same state_dict and numpy batch of CARD_CPU_BATCH
+    (smooth images for the TPS families, see the comment above
+    FAMILY_RUNS); ABINet in its pretraining stage, or with `joint` in its
+    joint stage, where the card's language model is fed the CPU's inputs;
+    `fault`
+    leaves the card side's batch norms in eval mode. Returns {'grad': (worst
+    share, name) over the parameters held per parameter, 'trunk': (worst
+    relative L2, name) over the trunk parameters that miss that limit,
+    'stats': the worst batch-norm statistic difference, 'loss': (CPU,
+    card), 'fed': how far the language model's inputs differed}."""
+    from parseq_tpu_torch.train.families import get_family
+    from parseq_tpu_torch.train.optim import OptimConfig
+    from parseq_tpu_torch.train.steps import init_state, make_train_step
+    from parseq_tpu_torch.utils.config import compose
+    from parseq_tpu_torch.utils.registry import build_model
+
+    mcfg = compose(experiment)['model']
+    if 'dropout' in mcfg or 'abinet' in mcfg['name']:
+        mcfg['dropout'] = 0.0
+    name = mcfg['name']
+    static = ({'lm_only': True} if mcfg.get('lm_only') else
+              {'pretraining': not joint} if 'abinet' in name else {})
+    family = get_family(name)
+    rng = np.random.default_rng(SEED)
+    sd, out, fed = None, {}, {'lm_inputs': [], 'tokens': 0.0, 'lengths': 0}
+    replay = iter(fed['lm_inputs'])  # the CPU's, in order, on the card
+    for device in ('cpu', 'cuda'):
+        bundle = build_model(name, mcfg, seed=SEED, dtype=torch.float32, device=device)
+        model = bundle.module
+        if sd is None:
+            sd = {k: v.clone() for k, v in model.state_dict().items()}
+            h, w = bundle.img_size
+            letters = np.array(list(mcfg['charset_train'][:62]))
+            words = [''.join(rng.choice(letters, rng.integers(3, 11)))
+                     for _ in range(CARD_CPU_BATCH)]
+            images = (smooth_images(rng, CARD_CPU_BATCH, h, w) if name in ('trba', 'trbc') else
+                      rng.integers(0, 256, (CARD_CPU_BATCH, h, w, 3), dtype=np.uint8))
+            # normalised here, so that both devices read the same values (a
+            # division by 255 on the card may round the last bit otherwise)
+            images = ((images / 255.0 - 0.5) / 0.5).astype(np.float32 if dtype == torch.float32
+                                                           else np.float64)
+            batch_np = {'images': images,
+                        **family.prepare(bundle.tokenizer, words, bundle.cfg, None)}
+        model.load_state_dict(sd)
+        model.to(dtype).train()
+        if joint:
+            assert model.cfg.l_detach  # the inputs carry no gradient
+            language_forward = model.language_forward
+
+            def fed_forward(tokens, lengths, rng=None, device=device):
+                if device == 'cpu':
+                    fed['lm_inputs'].append((tokens.detach().clone(), lengths.clone()))
+                else:
+                    want_t, want_l = next(replay)
+                    fed['tokens'] = max(fed['tokens'],
+                                        float((tokens.detach().cpu() - want_t).abs().max()))
+                    fed['lengths'] += int((lengths.cpu() != want_l).sum())
+                    tokens, lengths = want_t.to(device), want_l.to(device)
+                return language_forward(tokens, lengths, rng)
+
+            model.language_forward = fed_forward
+        if fault and device == 'cuda':
+            for m in model.modules():
+                if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                    m.eval()
+        state = init_state(model, OptimConfig(total_steps=100, batch_size=CARD_CPU_BATCH))
+        state['opt_state'].sched = lambda _: 0.0  # the weights stay; gradients are compared
+        step = make_train_step(family, bundle.cfg, dtype, **static)
+        with float64_mode() if dtype == torch.float64 else contextlib.nullcontext():
+            m = step(state, {k: torch.from_numpy(np.asarray(v)).to(device)
+                             for k, v in batch_np.items()}, None)
+        out[device] = (float(m['loss']),
+                       {n: (torch.zeros_like(p) if p.grad is None else p.grad).double().cpu()
+                        for n, p in model.named_parameters()}, _bn_buffers(model))
+        del bundle, model, state
+    (loss_cpu, g_cpu, s_cpu), (loss_gpu, g_gpu, s_gpu) = out['cpu'], out['cuda']
+    top = max(float(g.abs().max()) for g in g_cpu.values())
+    limits = CARD_CPU_LIMITS[dtype]
+    trunk = CARD_CPU_TRUNK.get(name, ((), 0.0))[0] if dtype == torch.float32 else ()
+    worst, worst_trunk = (0.0, ''), (0.0, '')
+    for n, g in g_cpu.items():
+        err = float((g_gpu[n] - g).abs().max()) / max(float(g.abs().max()),
+                                                      limits['floor'] * top, 1e-300)
+        if n.startswith(trunk) and err > limits['grad']:
+            rel = float((g_gpu[n] - g).norm() / g.norm().clamp(min=1e-30))
+            worst_trunk = max(worst_trunk, (rel, n))
+        else:
+            worst = max(worst, (err, n))
+    stats = max([float((s_gpu[n] - v).abs().max()) for n, v in s_cpu.items()] or [0.0])
+    return {'grad': worst, 'trunk': worst_trunk, 'stats': stats, 'loss': (loss_cpu, loss_gpu),
+            'fed': {k: fed[k] for k in ('tokens', 'lengths')}}
+
+
+def card_vs_cpu_passes(name, r, dtype=torch.float32):
+    limits = CARD_CPU_LIMITS[dtype]
+    return (r['grad'][0] <= limits['grad'] and r['stats'] <= limits['stats']
+            and r['trunk'][0] <= CARD_CPU_TRUNK.get(name, ((), 0.0))[1])
+
+
+def train_families_phase(card, main_launches):
+    """ViTSTR, CRNN, TRBC, TRBA, ABINet and ABINet's language model train
+    through cli.train at their experiments' full width (batch 384,
+    microbatches 8, bf16) for FAMILY_STEPS steps on a synthetic LMDB,
+    validating every 2 steps; checks, reload and read; B2's launches on
+    these paths; each family's f32 step on the card against the CPU (and a
+    planted fault failing it); the step times. Returns the numbers."""
+    from parseq_tpu_torch.cli import train as train_cli
+    from parseq_tpu_torch.ops import attention
+    from parseq_tpu_torch.train.families import get_family
+    from parseq_tpu_torch.train.optim import OptimConfig, make_abinet_optimizer
+    from parseq_tpu_torch.train.steps import init_state, make_train_step
+    from parseq_tpu_torch.utils.config import compose
+    from parseq_tpu_torch.utils.registry import build_model, load_from_checkpoint
+
+    rng = np.random.default_rng(SEED + 9)
+    charset = compose('vitstr')['model']['charset_train']
+    letters = np.array(list(charset[:62]))
+    words = [''.join(rng.choice(letters, rng.integers(3, 11)))
+             for _ in range(TRAIN_WORDS + VAL_WORDS)]
+    root = Path(__file__).resolve().parent / 'build'
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix='smoke-families-', dir=root))
+    info = {'card': card}
+    try:
+        write_lmdb(tmp / 'data' / 'train' / 'real' / 'synthetic', words[:TRAIN_WORDS])
+        write_lmdb(tmp / 'data' / 'val' / 'synthetic', words[TRAIN_WORDS:])
+        for experiment in FAMILY_RUNS:
+            attention.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, best = train_cli.main([
+                f'+experiment={experiment}', f'data.root_dir={tmp / "data"}',
+                f'trainer.max_steps={FAMILY_STEPS}', 'trainer.val_check_interval=2',
+                f'--work_dir={tmp / experiment}', f'--seed={SEED}', '--device', 'cuda'])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            b2 = attention.launches
+            config = json.load(open(tmp / experiment / 'config.json'))
+            mcfg, tcfg = config['model'], config['trainer']
+            if (mcfg['batch_size'], tcfg['microbatches']) != (384, 8):
+                raise AssertionError(f'{experiment}: batch {mcfg["batch_size"]}, microbatches '
+                                     f'{tcfg["microbatches"]}')
+            metrics = [json.loads(line) for line in open(tmp / experiment / 'metrics.jsonl')]
+            losses = [(m['step'], m['loss'], m['grad_norm']) for m in metrics if 'loss' in m]
+            vals = [m for m in metrics if 'val_accuracy' in m]
+            if not losses or not all(np.isfinite(x) for _, l, g in losses for x in (l, g)):
+                raise AssertionError(f'{experiment}: training metrics not finite: {losses}')
+            if [v['step'] for v in vals] != [2, 4] or not all(np.isfinite(v['val_loss'])
+                                                             for v in vals):
+                raise AssertionError(f'{experiment}: validations {vals}')
+            ckpts = tmp / experiment / 'checkpoints'
+            for ckpt in ('last.ckpt', 'train_state.ckpt', 'swa.ckpt'):
+                if not (ckpts / ckpt).exists():
+                    raise AssertionError(f'{experiment}: {ckpt} missing after training')
+            if state['step'] != FAMILY_STEPS or best is None or not best.exists():
+                raise AssertionError(f'{experiment}: step {state["step"]}, best {best}')
+            del state
+            bundle = load_from_checkpoint(str(best), device='cuda')
+            x = rng.uniform(-1, 1, (7, *bundle.img_size, 3)).astype(np.float32)
+            logits = bundle(x)
+            labels, confs = bundle.read(x)
+            if not (torch.isfinite(logits).all() and len(labels) == 7
+                    and all(0.0 <= c <= 1.0 for c in confs)):
+                raise AssertionError(f'{experiment}: read from the checkpoint: {labels} {confs}')
+            del bundle
+            if experiment == 'vitstr':
+                need = 12 * 8 * FAMILY_STEPS
+                if b2 < need:
+                    raise AssertionError(f'ViTSTR training launched B2 {b2} times, expected '
+                                         f'>= {need}')
+                info['b2_vitstr_cli'] = b2
+                main_launches['B2'] += b2
+            if experiment == 'abinet':
+                if b2 < 1:
+                    raise AssertionError('ABINet\'s validations launched no B2')
+                info['b2_abinet_cli'] = b2
+                main_launches['B2'] += b2
+            print(f'cli.train {experiment} [{card}]: {FAMILY_STEPS} steps at batch 384, '
+                  f'microbatches 8, bf16, {wall:.1f} s wall incl. data, 2 validations and the '
+                  f'SWA batch-norm pass; B2 launches {b2}; loss/grad_norm {losses}; '
+                  f'validation {[(v["step"], round(v["val_loss"], 4)) for v in vals]}; peak '
+                  f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; read 7 images from '
+                  f'{best.name} -> {labels[:2]} ...')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # Card vs CPU, one step each in f32 and in float64 (ABINet in both its
+    # stages), and the planted fault (batch norms left in eval mode on the
+    # card) failing the same limits; every reading is printed before a
+    # failure raises.
+    info['card_vs_cpu'] = {}
+    failed = []
+    f32, f64 = CARD_CPU_LIMITS[torch.float32], CARD_CPU_LIMITS[torch.float64]
+    for experiment, joint in [(e, False) for e in FAMILY_RUNS] + [('abinet', True)]:
+        name = compose(experiment)['model']['name']
+        label = experiment + (' joint' if joint else ' pretraining' if name == 'abinet' else '')
+        r = card_vs_cpu(experiment, joint=joint)
+        d = card_vs_cpu(experiment, joint=joint, dtype=torch.float64)
+        ok = card_vs_cpu_passes(name, r) and card_vs_cpu_passes(name, d, torch.float64)
+        trunk_limit = CARD_CPU_TRUNK.get(name, ((), 0.0))[1]
+        line = (f'{label} step, card vs CPU (batch {CARD_CPU_BATCH}): f32 (TF32 off) loss '
+                f'{r["loss"][1]:.6f} / {r["loss"][0]:.6f}; worst gradient {r["grad"][0]:.3e} of '
+                f'its largest ({r["grad"][1]}; limit {f32["grad"]}); trunk relative L2 '
+                f'{r["trunk"][0]:.3e} ({r["trunk"][1] or "none missed the limit"}; limit '
+                f'{trunk_limit}); batch-norm statistics {r["stats"]:.3e} (limit {f32["stats"]}); '
+                f'float64: worst gradient {d["grad"][0]:.3e} ({d["grad"][1]}; limit '
+                f'{f64["grad"]}), statistics {d["stats"]:.3e} (limit {f64["stats"]})')
+        if joint:
+            line += (f'; its language model fed the CPU\'s inputs, which differed by '
+                     f'{r["fed"]["tokens"]:.3e} (tokens) and in {r["fed"]["lengths"]} lengths '
+                     f'(f32), {d["fed"]["tokens"]:.3e} and {d["fed"]["lengths"]} (float64)')
+        if not ok:
+            failed.append(label)
+        if name in BATCH_NORM_FAMILIES and not joint:
+            f = card_vs_cpu(experiment, fault=True)
+            g = card_vs_cpu(experiment, fault=True, dtype=torch.float64)
+            if card_vs_cpu_passes(name, f) or card_vs_cpu_passes(name, g, torch.float64):
+                failed.append(f'{label}: the planted fault passed')
+            line += (f'; planted fault (batch norms in eval mode on the card): f32 gradient '
+                     f'{f["grad"][0]:.3e} ({f["grad"][1]}), trunk {f["trunk"][0]:.3e} '
+                     f'({f["trunk"][1]}), statistics {f["stats"]:.3e}; float64 gradient '
+                     f'{g["grad"][0]:.3e}, statistics {g["stats"]:.3e}')
+        print(line + (' ok' if ok else ' FAILED'), flush=True)
+        info['card_vs_cpu'][label] = {'grad': r['grad'][0], 'trunk_l2': r['trunk'][0],
+                                      'stats': r['stats'], 'grad_f64': d['grad'][0],
+                                      'stats_f64': d['stats']}
+    if failed:
+        raise AssertionError(f'f32 step on the card vs the CPU failed: {failed}')
+
+    # Step times on a fixed batch: median of FAMILY_TIMED after a warm-up,
+    # peak memory, one profiled step's device-busy share; B2 per step.
+    from torch.profiler import ProfilerActivity, profile
+
+    info['steps'] = {}
+    for experiment in FAMILY_RUNS:
+        mcfg = compose(experiment)['model']
+        name = mcfg['name']
+        bundle = build_model(name, mcfg, seed=SEED, device='cuda')
+        model = bundle.module.train()
+        family = get_family(name)
+        h, w = bundle.img_size
+        batch = {'images': torch.from_numpy(rng.integers(0, 256, (384, h, w, 3), dtype=np.uint8)),
+                 **{k: torch.from_numpy(np.asarray(v)) for k, v in family.prepare(
+                     bundle.tokenizer, words[:384], bundle.cfg, np.random.default_rng(1)).items()}}
+        batch = {k: v.to('cuda') for k, v in batch.items()}
+        lm_only = bool(mcfg.get('lm_only'))
+        static = ({'lm_only': True} if lm_only else {'pretraining': False} if 'abinet' in name
+                  else {})
+        ocfg = OptimConfig(total_steps=100, batch_size=384)
+        state = init_state(model, ocfg)
+        if 'abinet' in name:
+            state['opt_state'] = make_abinet_optimizer(model.named_parameters(), ocfg, 3e-4, 44)
+        step = make_train_step(family, bundle.cfg, torch.bfloat16, microbatches=8, **static)
+        torch.cuda.reset_peak_memory_stats()
+        times, b2 = [], []
+        for i in range(FAMILY_TIMED + 1):
+            gen = torch.Generator(device='cuda').manual_seed(i)
+            before = attention.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(state, dict(batch), gen)
+            torch.cuda.synchronize()
+            b2.append(attention.launches - before)
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+            if not (math.isfinite(float(m['loss'])) and math.isfinite(float(m['grad_norm']))):
+                raise AssertionError(f'{experiment} step: loss {m["loss"]}, grad_norm '
+                                     f'{m["grad_norm"]}')
+        ms = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(state, dict(batch), torch.Generator(device='cuda').manual_seed(0))
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        busy = sum(e.self_device_time_total for e in events if e.device_type.name == 'CUDA') / 1e3
+        launches = sum(e.count for e in events
+                       if e.key in ('cudaLaunchKernel', 'cudaLaunchKernelExC', 'cuLaunchKernel'))
+        if experiment == 'vitstr' and min(b2) < 12 * 8:
+            raise AssertionError(f'a ViTSTR train step launched B2 {b2} times, expected >= 96')
+        if 'abinet' in name and max(b2) != 0:
+            raise AssertionError(f'an ABINet step with dropout launched B2: {b2}')
+        info['steps'][experiment] = {'step_ms': ms, 'img_per_s': 384 / ms * 1e3,
+                                     'peak_gib': peak, 'device_busy_ms': busy,
+                                     'device_busy_share': busy / ms, 'b2_per_step': b2[-1],
+                                     'launches_per_step': launches}
+        print(f'train step {experiment} B=384 microbatches 8 bf16 [{card}]: {ms:.2f} ms '
+              f'(median of {FAMILY_TIMED}; {[round(t, 2) for t in times]}), '
+              f'{384 / ms * 1e3:.1f} img/s, peak {peak:.2f} GiB, device busy {busy:.2f} ms = '
+              f'{busy / ms:.1%} of the step, {launches} kernel launches (one profiled step); B2 '
+              f'per step {b2[-1]}')
+        del bundle, model, state, step, batch
+        torch.cuda.empty_cache()
+    print(f'training families [{card}]: ' + json.dumps(info['steps']))
+    return info
 
 if __name__ == '__main__':
     sys.exit(main())

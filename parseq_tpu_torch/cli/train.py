@@ -3,6 +3,10 @@
 Usage:
     python -m parseq_tpu_torch.cli.train [+experiment=parseq] [key=value ...] [--device cuda]
 
+Experiments: parseq, parseq-tiny, parseq-patch16-224, vitstr, crnn, trba,
+trbc, abinet, abinet-sv, and tune_abinet-lm (ABINet's language model alone;
+also `+experiment=abinet model.lm_only=true`).
+
 Overrides use dotted paths (model.lr=1e-3, data.root_dir=..., trainer.max_steps=...).
 `--device` defaults to cuda; without a CUDA device that raises (pass
 `--device cpu` to train on the CPU).

@@ -1,4 +1,4 @@
-"""ABINet inference (port of the inference half of parseq_tpu/models/abinet.py).
+"""ABINet (port of parseq_tpu/models/abinet.py).
 
 Vision model (resnet45 -> post-LN transformer layers -> position attention
 or the `-sv` Attention variant) -> BCN cloze language model -> gated
@@ -12,8 +12,16 @@ resnet.*, vision.backbone.pos_encoder.pe, vision.backbone.transformer.
 layers.{i}.*, vision.attention.{k_encoder,k_decoder,pos_encoder,project}.*
 (or f0_embedding/w0/wv/we), vision.cls, language.{proj,token_encoder,
 pos_encoder,model.layers.{i},cls}.*, alignment.{w_att,cls}.*. Convolutions
-and batch norms are nn.Conv2d / nn.BatchNorm2d (NCHW inside, eval mode);
-the computation goes through the port's ops, never through their forward.
+and batch norms are nn.Conv2d / nn.BatchNorm2d (NCHW inside); the
+computation goes through the port's ops, never through their forward.
+
+Training: `module.train()` switches the batch norms to batch statistics
+(ops/cnn.py:batchnorm), and a torch.Generator passed as `rng` turns on
+dropout at `cfg.dropout` at the JAX layers' sites: the encoder layer's
+attention probabilities, its two residual branches and its MLP hidden; the
+decoder layer's attention probabilities, residual branches and MLP hidden;
+the language model's token embedding. Encoder attention with dropout is
+plain `layers.mha` (no kernel drops probabilities).
 
 Numerics follow the JAX package: batch norm in f32; PositionAttention's
 scores are a product in the compute dtype divided by sqrt(E) in that dtype,
@@ -34,7 +42,7 @@ from torch import nn
 from parseq_tpu_torch.models.parseq import MultiheadAttentionParams
 from parseq_tpu_torch.ops import cnn, layers
 from parseq_tpu_torch.ops.attention import encoder_self_attention
-from parseq_tpu_torch.ops.layers import NEG_INF, layer_norm, linear
+from parseq_tpu_torch.ops.layers import NEG_INF, dropout, layer_norm, linear
 
 
 @dataclass(frozen=True)
@@ -185,14 +193,14 @@ class _EncoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(d)
         self.norm2 = nn.LayerNorm(d)
 
-    def forward(self, x):
-        sa = self.self_attn
+    def forward(self, x, rng=None):
+        sa, drop = self.self_attn, self.cfg.dropout
         a = encoder_self_attention(x, sa.in_proj_weight, sa.in_proj_bias, sa.out_proj.weight,
-                                   sa.out_proj.bias, self.cfg.nhead)
-        x = layer_norm(x + a, self.norm1.weight, self.norm1.bias)
+                                   sa.out_proj.bias, self.cfg.nhead, dropout_rate=drop, rng=rng)
+        x = layer_norm(x + dropout(a, drop, rng), self.norm1.weight, self.norm1.bias)
         h = _act(self.cfg)(linear(x, self.linear1.weight, self.linear1.bias))
-        h = linear(h, self.linear2.weight, self.linear2.bias)
-        return layer_norm(x + h, self.norm2.weight, self.norm2.bias)
+        h = linear(dropout(h, drop, rng), self.linear2.weight, self.linear2.bias)
+        return layer_norm(x + dropout(h, drop, rng), self.norm2.weight, self.norm2.bias)
 
 
 class _DecoderLayer(nn.Module):
@@ -212,17 +220,18 @@ class _DecoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(d)
         self.norm3 = nn.LayerNorm(d)
 
-    def forward(self, tgt, memory, memory_bias, key_padding_mask):
-        h = self.cfg.nhead
+    def forward(self, tgt, memory, memory_bias, key_padding_mask, rng=None):
+        h, drop = self.cfg.nhead, self.cfg.dropout
         if self.cfg.l_use_self_attn:
-            a = self.self_attn(tgt, tgt, tgt, num_heads=h, key_padding_mask=key_padding_mask)
-            tgt = layer_norm(tgt + a, self.norm1.weight, self.norm1.bias)
+            a = self.self_attn(tgt, tgt, tgt, num_heads=h, key_padding_mask=key_padding_mask,
+                               dropout_rate=drop, rng=rng)
+            tgt = layer_norm(tgt + dropout(a, drop, rng), self.norm1.weight, self.norm1.bias)
         a = self.multihead_attn(tgt, memory, memory, num_heads=h, attn_bias=memory_bias,
-                                key_padding_mask=key_padding_mask)
-        tgt = layer_norm(tgt + a, self.norm2.weight, self.norm2.bias)
+                                key_padding_mask=key_padding_mask, dropout_rate=drop, rng=rng)
+        tgt = layer_norm(tgt + dropout(a, drop, rng), self.norm2.weight, self.norm2.bias)
         x = _act(self.cfg)(linear(tgt, self.linear1.weight, self.linear1.bias))
-        x = linear(x, self.linear2.weight, self.linear2.bias)
-        return layer_norm(tgt + x, self.norm3.weight, self.norm3.bias)
+        x = linear(dropout(x, drop, rng), self.linear2.weight, self.linear2.bias)
+        return layer_norm(tgt + dropout(x, drop, rng), self.norm3.weight, self.norm3.bias)
 
 
 class _Layers(nn.Module):
@@ -372,9 +381,23 @@ class ABINet(nn.Module):
                     nn.init.xavier_uniform_(w, generator=generator)
                 nn.init.zeros_(m.in_proj_bias)
 
-    # -- sub-models (each returns the JAX package's result dict) ------------
+    @torch.no_grad()
+    def alignment_init(self, generator: torch.Generator):
+        """Redraw the alignment model's weights in place (truncated normal,
+        std 0.02, zero biases), as the JAX package's `alignment_init` at the
+        switch from pretraining to joint training; `generator` may be on
+        any device. The parameters stay the same tensors, so an optimizer
+        keeps its moments for them."""
+        for lin in (self.alignment.w_att, self.alignment.cls):
+            w = torch.empty(lin.weight.shape, device=generator.device)
+            nn.init.trunc_normal_(w, std=0.02, a=-0.04, b=0.04, generator=generator)
+            lin.weight.copy_(w)
+            nn.init.zeros_(lin.bias)
 
-    def vision_forward(self, images):
+    # -- sub-models (each returns the JAX package's result dict) ------------
+    # rng: None (no dropout) or a torch.Generator on the images' device.
+
+    def vision_forward(self, images, rng=None):
         """images (B, H, W, 3) NHWC in the compute dtype -> {'feature' (B, T, E),
         'logits' (B, T, C) f32, 'pt_lengths' (B,)}."""
         cfg, V = self.cfg, self.vision
@@ -383,27 +406,29 @@ class ABINet(nn.Module):
         if cfg.v_backbone == 'transformer':
             seq = x.flatten(2).transpose(1, 2) + V.backbone.pos_encoder.table(H * W, x.dtype)
             for layer in V.backbone.transformer.layers:
-                seq = layer(seq)
+                seq = layer(seq, rng)
             x = seq.transpose(1, 2).reshape(B, E, H, W)
         vecs = V.attention(x)
         logits = linear(vecs, V.cls.weight, V.cls.bias).float()
         return {'feature': vecs, 'logits': logits,
                 'pt_lengths': get_length(logits, cfg.null_label)}
 
-    def language_forward(self, tokens, lengths):
+    def language_forward(self, tokens, lengths, rng=None):
         """BCN language model. tokens (B, T, num_classes) probabilities in the
-        compute dtype; lengths (B,) integer."""
+        compute dtype, detached when cfg.l_detach; lengths (B,) integer."""
         cfg, Lm = self.cfg, self.language
         T = cfg.max_length
+        if cfg.l_detach:
+            tokens = tokens.detach()
         embed = linear(tokens, Lm.proj.weight)  # no bias
-        embed = embed + Lm.token_encoder.table(T, embed.dtype)
+        embed = dropout(embed + Lm.token_encoder.table(T, embed.dtype), cfg.dropout, rng)
         query = Lm.pos_encoder.table(T, embed.dtype).expand_as(embed)
         padding_mask = torch.arange(T, device=tokens.device)[None, :] >= lengths[:, None]
         eye = torch.eye(T, dtype=torch.bool, device=tokens.device)
         loc_bias = torch.where(eye, NEG_INF, 0.0).float()  # no attending to one's own position
         out = query
         for layer in Lm.model.layers:
-            out = layer(out, embed, loc_bias, padding_mask)
+            out = layer(out, embed, loc_bias, padding_mask, rng)
         logits = linear(out, Lm.cls.weight, Lm.cls.bias).float()
         return {'feature': out, 'logits': logits,
                 'pt_lengths': get_length(logits, cfg.null_label)}
@@ -416,17 +441,17 @@ class ABINet(nn.Module):
         logits = linear(out, A.cls.weight, A.cls.bias).float()
         return {'logits': logits, 'pt_lengths': get_length(logits, self.cfg.null_label)}
 
-    def forward_iterations(self, images, dtype=torch.float32):
-        """Iterative inference. Returns (all_a, all_l, v_res): the alignment
+    def forward_iterations(self, images, dtype=torch.float32, rng=None):
+        """Iterative refinement. Returns (all_a, all_l, v_res): the alignment
         and language results of every iteration and the vision result."""
         cfg = self.cfg
-        v_res = self.vision_forward(images.to(dtype))
+        v_res = self.vision_forward(images.to(dtype), rng)
         a_res = v_res
         all_a, all_l = [], []
         for _ in range(cfg.iter_size):
             tokens = torch.softmax(a_res['logits'], dim=-1).to(dtype)
             lengths = a_res['pt_lengths'].clamp(2, cfg.max_length)
-            l_res = self.language_forward(tokens, lengths)
+            l_res = self.language_forward(tokens, lengths, rng)
             all_l.append(l_res)
             a_res = self.alignment_forward(l_res['feature'], v_res['feature'])
             all_a.append(a_res)

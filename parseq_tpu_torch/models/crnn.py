@@ -1,5 +1,5 @@
-"""CRNN inference: VGG-style CNN -> 2x BiLSTM -> CTC logits (port of the
-inference half of parseq_tpu/models/crnn.py).
+"""CRNN: VGG-style CNN -> 2x BiLSTM -> CTC logits (port of
+parseq_tpu/models/crnn.py).
 
 Seven convolutions (batch norm on three of them) with asymmetric max pools
 collapse the height to 1; the width becomes the sequence, W/4 + 1 steps.
@@ -7,7 +7,8 @@ Parameters carry the reference state_dict names (the keys
 parseq_tpu/utils/torch_convert.py:convert_crnn reads): cnn.conv{i},
 cnn.batchnorm{i}, rnn.0 and rnn.1 (BidirectionalLSTMs). The computation
 goes through the port's ops (ops/cnn.py, ops/rnn.py), never through the
-modules' own forward.
+modules' own forward. `module.train()` switches the batch norms to batch
+statistics (ops/cnn.py:batchnorm), as the JAX package's `train=True`.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from parseq_tpu_torch.ops import cnn
+from parseq_tpu_torch.ops.ctc import ctc_loss
 from parseq_tpu_torch.ops.rnn import BidirectionalLSTM
 
 # (kernel, stride, pad, out_ch, batchnorm) per conv (reference model.py:12-41)
@@ -116,3 +118,11 @@ class CRNN(nn.Module):
         for layer in self.rnn:
             x = layer(x)
         return x.float()
+
+    def logits_loss(self, images, targets, target_lengths, dtype=torch.float32):
+        """CTC loss of the logits against CTCTokenizer-encoded targets (B, L)
+        and their lengths (B,). Returns (logits, loss, batch size)."""
+        logits = self(images, dtype)
+        loss = ctc_loss(torch.log_softmax(logits, dim=-1), targets, target_lengths,
+                        blank=self.cfg.blank_id)
+        return logits, loss, images.shape[0]

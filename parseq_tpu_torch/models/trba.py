@@ -1,6 +1,8 @@
-"""TRBA / TRBC inference: TPS rectification -> FAN ResNet -> BiLSTMs ->
-attention decoder (TRBA) or a linear CTC head (TRBC) (port of the inference
-half of parseq_tpu/models/trba.py).
+"""TRBA / TRBC: TPS rectification -> FAN ResNet -> BiLSTMs -> attention
+decoder (TRBA) or a linear CTC head (TRBC) (port of
+parseq_tpu/models/trba.py). `module.train()` switches every batch norm, the
+TPS localiser's and the ResNet's, to batch statistics (ops/cnn.py), as the
+JAX package's `train=True`; training losses are in train/families.py.
 
 Parameters carry the reference state_dict names (the keys
 parseq_tpu/utils/torch_convert.py:convert_trba reads):

@@ -8,8 +8,8 @@ the encoder runs L = 197, so every self-attention goes through kernel B2.
 
 Parameters use the reference's flat keys (a timm ViT plus `head`):
 patch_embed.proj, cls_token, pos_embed, blocks.{i}.*, norm, head — the keys
-parseq_tpu/utils/torch_convert.py:convert_vitstr reads. `logits_loss`
-comes with the training slice.
+parseq_tpu/utils/torch_convert.py:convert_vitstr reads. `logits_loss` is
+the training and validation loss.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from parseq_tpu_torch.models.vit import ViTConfig, VisionTransformer
-from parseq_tpu_torch.ops.layers import linear
+from parseq_tpu_torch.ops.layers import ce_ignore_pad, linear
 
 
 @dataclass(frozen=True)
@@ -91,3 +91,11 @@ class ViTSTR(VisionTransformer):
         x = super().forward(images.to(dtype))
         x = x[:, 1: self.cfg.max_label_length + 2]
         return linear(x, self.head.weight, self.head.bias).float()
+
+    def logits_loss(self, images, tgt_ids, dtype=torch.float32):
+        """CE against [chars..., EOS, PAD...] (tgt_ids (B, L + 2) with BOS
+        first, dropped here), PAD ignored. Returns (logits, loss, numel)."""
+        logits = self(images, dtype)
+        targets = tgt_ids[:, 1: self.cfg.num_steps + 1]
+        loss, numel = ce_ignore_pad(logits, targets, self.cfg.pad_id, self.cfg.num_classes)
+        return logits, loss, numel

@@ -296,11 +296,17 @@ def fused_attention(q, k, v, scale):
     return _FusedAttention.apply(q, k, v, scale)
 
 
-def encoder_self_attention(x, in_weight, in_bias, out_weight, out_bias, num_heads):
+def encoder_self_attention(x, in_weight, in_bias, out_weight, out_bias, num_heads, *,
+                           dropout_rate=0.0, rng=None):
     """layers.mha(x, x, x) with no mask. At L >= KERNEL_MIN_LEN the packed
     q|k|v projection feeds kernel B2 through strided views (no copies);
     below it, under autograd, it feeds attention_flashbwd (kernel B4 in the
-    backward) when the kernel takes the shape."""
+    backward) when the kernel takes the shape. With attention-probability
+    dropout (dropout_rate > 0 and a generator `rng`) it is layers.mha with
+    that dropout: neither kernel drops probabilities."""
+    if dropout_rate > 0.0 and rng is not None:
+        return layers.mha(x, x, x, in_weight, in_bias, out_weight, out_bias, num_heads=num_heads,
+                          dropout_rate=dropout_rate, rng=rng)
     B, L, D = x.shape
     if L < KERNEL_MIN_LEN:
         training = torch.is_grad_enabled() and (x.requires_grad or in_weight.requires_grad)

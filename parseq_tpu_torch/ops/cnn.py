@@ -1,5 +1,5 @@
-"""Convolution, max pooling and eval-mode batch norm (port of
-parseq_tpu/ops/cnn.py: conv2d, max_pool2d, batchnorm).
+"""Convolution, max pooling and batch norm (port of parseq_tpu/ops/cnn.py:
+conv2d, max_pool2d, batchnorm).
 
 The JAX package is NHWC; inside the port's CNNs activations are NCHW, as
 PyTorch keeps them, and the parameters are those of nn.Conv2d and
@@ -31,11 +31,26 @@ def max_pool2d(x, kernel, stride=None, padding=(0, 0)):
     return F.max_pool2d(x, kernel, stride or kernel, padding)
 
 
-def batchnorm(x, bn: nn.BatchNorm2d):
-    """Eval-mode BatchNorm2d over channels of (B, C, H, W), in float32:
-    (x - mean) * (rsqrt(var + eps) * scale) + bias, cast to x's dtype."""
-    inv = torch.rsqrt(bn.running_var.float() + bn.eps) * bn.weight.float()
-    y = (x.float() - bn.running_mean.float()[:, None, None]) * inv[:, None, None]
+def batchnorm(x, bn: nn.BatchNorm2d, momentum=0.1):
+    """BatchNorm2d over channels of (B, C, H, W), in float32:
+    (x - mean) * (rsqrt(var + eps) * scale) + bias, cast to x's dtype.
+
+    Eval mode (`bn.training` unset) uses the running statistics. Train mode
+    uses the batch's mean and biased variance and moves the running ones in
+    place, torch's momentum convention with the unbiased variance:
+    running = (1 - momentum) * running + momentum * batch."""
+    if bn.training:
+        x32 = x.float()
+        var, mean = torch.var_mean(x32, dim=(0, 2, 3), correction=0)
+        n = x.numel() / mean.numel()
+        with torch.no_grad():
+            bn.running_mean.mul_(1 - momentum).add_(momentum * mean)
+            bn.running_var.mul_(1 - momentum).add_(momentum * var * (n / max(n - 1, 1)))
+            bn.num_batches_tracked.add_(1)
+    else:
+        mean, var = bn.running_mean.float(), bn.running_var.float()
+    inv = torch.rsqrt(var + bn.eps) * bn.weight.float()
+    y = (x.float() - mean[:, None, None]) * inv[:, None, None]
     return (y + bn.bias.float()[:, None, None]).to(x.dtype)
 
 

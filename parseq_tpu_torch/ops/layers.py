@@ -144,5 +144,16 @@ def mlp(x, fc1_weight, fc1_bias, fc2_weight, fc2_bias, *, dropout_rate=0.0, rng=
     return linear(h, fc2_weight, fc2_bias)
 
 
+def ce_ignore_pad(logits, targets, pad_id, num_classes):
+    """Token-mean cross entropy of logits (..., C) against targets (...) with
+    PAD ignored, in float32. Returns (loss, numel): numel counts the
+    non-PAD targets, and the loss is 0 when there are none."""
+    valid = targets != pad_id
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets.long().clamp(0, num_classes - 1)[..., None])[..., 0]
+    numel = valid.sum()
+    return (nll * valid).sum() / numel.clamp(min=1), numel
+
+
 def embedding(ids, weight, dtype=torch.float32):
     return weight.to(dtype)[ids]

@@ -2,13 +2,25 @@
 
 Each family supplies
   prepare(tokenizer, labels, cfg, rng) -> dict of host numpy arrays
-  loss(model, cfg, batch, rng, dtype) -> (loss, loss_numel)
-Only PARSeq is ported; the other families raise, naming their ROADMAP item.
+  loss(model, cfg, batch, rng, dtype, **static) -> (loss, loss_numel)
+  val: 'ce' | 'ctc', the validation loss of the train loop.
+The model is in train mode: batch norms use batch statistics and move their
+running statistics in place (the JAX package threads them as `stats`).
+rng is None (no dropout) or a torch.Generator on the batch's device. Loss
+semantics follow each reference system's training_step.
 """
 
 from __future__ import annotations
 
+import numpy as np
+import torch
+import torch.nn.functional as F
+
 from parseq_tpu_torch.models.parseq import gen_tgt_perms
+from parseq_tpu_torch.ops.ctc import ctc_loss
+from parseq_tpu_torch.ops.layers import ce_ignore_pad
+
+# --- PARSeq -------------------------------------------------------------------
 
 
 def _parseq_prepare(tok, labels, cfg, rng):
@@ -20,24 +32,126 @@ def _parseq_loss(model, cfg, batch, rng, dtype):
                                  rng=rng)
 
 
+# --- ViTSTR -------------------------------------------------------------------
+
+
+def _vitstr_prepare(tok, labels, cfg, rng):
+    return {'tgt': tok.encode(labels, cfg.max_label_length)}
+
+
+def _vitstr_loss(model, cfg, batch, rng, dtype):
+    _, loss, numel = model.logits_loss(batch['images'], batch['tgt'], dtype=dtype)
+    return loss, numel
+
+
+# --- CRNN / TRBC (CTC) --------------------------------------------------------
+
+
+def _ctc_prepare(tok, labels, cfg, rng):
+    return {'targets': tok.encode(labels, cfg.max_label_length),
+            'lengths': tok.lengths(labels, cfg.max_label_length)}
+
+
+def _crnn_loss(model, cfg, batch, rng, dtype):
+    _, loss, n = model.logits_loss(batch['images'], batch['targets'], batch['lengths'],
+                                   dtype=dtype)
+    return loss, n
+
+
+def _trbc_loss(model, cfg, batch, rng, dtype):
+    logits = model(batch['images'], dtype)
+    loss = ctc_loss(torch.log_softmax(logits, dim=-1), batch['targets'], batch['lengths'],
+                    blank=0)
+    return loss, batch['images'].shape[0]
+
+
+# --- TRBA (teacher-forced attention) ------------------------------------------
+
+
+def _trba_prepare(tok, labels, cfg, rng):
+    enc = tok.encode(labels, cfg.max_label_length)  # (B, L + 2)
+    return {'inputs': enc[:, :-1], 'targets': enc[:, 1:]}
+
+
+def _trba_loss(model, cfg, batch, rng, dtype):
+    logits = model(batch['images'], dtype, text=batch['inputs'])
+    return ce_ignore_pad(logits, batch['targets'][:, :logits.shape[1]], cfg.pad_id,
+                         cfg.num_tokens)
+
+
+# --- ABINet (staged) ----------------------------------------------------------
+
+
+def _abinet_prepare(tok, labels, cfg, rng):
+    enc = tok.encode(labels, cfg.max_label_length)
+    targets = enc[:, 1:cfg.max_length + 1]  # (B, T) [chars..., EOS, PAD...]
+    inputs = np.where(targets == cfg.pad_id, cfg.null_label, targets)
+    lengths = np.asarray([len(label) + 1 for label in labels], np.int32)
+    return {'targets': targets, 'lm_inputs': inputs, 'lengths': lengths}
+
+
+def _abinet_res_loss(res_list, targets, cfg):
+    """Mean CE over a list of results (abinet/system.py:147-159)."""
+    if isinstance(res_list, dict):
+        res_list = [res_list]
+    loss, numel = 0.0, 0
+    for res in res_list:
+        one, numel = ce_ignore_pad(res['logits'], targets, cfg.pad_id, cfg.num_classes)
+        loss = loss + one
+    return loss / len(res_list), numel
+
+
+def _abinet_loss(model, cfg, batch, rng, dtype, *, pretraining=False, lm_only=False):
+    images = batch['images'].to(dtype)
+    targets = batch['targets']
+    onehot = F.one_hot(batch['lm_inputs'].long(), cfg.num_classes).to(dtype)
+
+    if lm_only:
+        # The language model alone on ground-truth inputs (system.py:100-104,
+        # 183-185): vision and alignment get no gradient.
+        l_res = model.language_forward(onehot, batch['lengths'], rng)
+        loss, numel = _abinet_res_loss(l_res, targets, cfg)
+        return cfg.l_loss_weight * loss, numel
+
+    if pretraining:
+        # Each sub-model trained on its own (system.py:187-195).
+        v_res = model.vision_forward(images, rng)
+        l_res = model.language_forward(onehot, batch['lengths'], rng)
+        a_res = model.alignment_forward(l_res['feature'].detach(), v_res['feature'].detach())
+        v_loss, numel = _abinet_res_loss(v_res, targets, cfg)
+        l_loss, _ = _abinet_res_loss(l_res, targets, cfg)
+        a_loss, _ = _abinet_res_loss(a_res, targets, cfg)
+    else:
+        all_a, all_l, v_res = model.forward_iterations(images, dtype, rng)
+        v_loss, numel = _abinet_res_loss(v_res, targets, cfg)
+        l_loss, _ = _abinet_res_loss(all_l, targets, cfg)
+        a_loss, _ = _abinet_res_loss(all_a, targets, cfg)
+    loss = cfg.v_loss_weight * v_loss + cfg.l_loss_weight * l_loss + cfg.a_loss_weight * a_loss
+    return loss, numel
+
+
+# --- registry -----------------------------------------------------------------
+
+
 class TrainFamily:
-    def __init__(self, prepare, loss):
+    def __init__(self, prepare, loss, val='ce'):
         self.prepare = prepare
         self.loss = loss
+        self.val = val  # 'ce' | 'ctc'
 
 
-FAMILIES = {'parseq': TrainFamily(_parseq_prepare, _parseq_loss)}
-
-# families not ported yet -> where ROADMAP.md queues their training
-_QUEUED = {'vitstr': 'queue A item 14', 'abinet': 'queue A item 15',
-           'crnn': 'queue A item 16', 'trba': 'queue A item 16', 'trbc': 'queue A item 16'}
+FAMILIES = {
+    'parseq': TrainFamily(_parseq_prepare, _parseq_loss),
+    'vitstr': TrainFamily(_vitstr_prepare, _vitstr_loss),
+    'crnn': TrainFamily(_ctc_prepare, _crnn_loss, val='ctc'),
+    'trba': TrainFamily(_trba_prepare, _trba_loss),
+    'trbc': TrainFamily(_ctc_prepare, _trbc_loss, val='ctc'),
+    'abinet': TrainFamily(_abinet_prepare, _abinet_loss),
+}
 
 
 def get_family(name: str) -> TrainFamily:
     for key in ('abinet', 'crnn', 'parseq', 'trbc', 'trba', 'vitstr'):
         if key in name:
-            if key in FAMILIES:
-                return FAMILIES[key]
-            raise NotImplementedError(f"training of the '{key}' family is not ported to "
-                                      f"PyTorch yet (ROADMAP.md {_QUEUED[key]})")
+            return FAMILIES[key]
     raise KeyError(name)

@@ -1,17 +1,23 @@
 """Training loop: OneCycle + SWA, validation, top-k checkpoints, resume (port of
-the PARSeq path of parseq_tpu/train/loop.py:train).
+parseq_tpu/train/loop.py:train), for every model family.
 
 One device, eager PyTorch: each loader batch moves to the device as uint8
 and is normalized there; the train step (train/steps.py) splits it into
 `trainer.microbatches` equal slices and applies one AdamW update. Every
 `val_check_interval` steps the loop validates (accuracy, NED, confidence,
-loss over the val tree), keeps the top-3 checkpoints by val accuracy plus
-`last.ckpt`, and writes the resumable `train_state.ckpt` (model, optimizer,
-step) and the `swa_state.ckpt` sidecar. `metrics.jsonl` and TensorBoard
-events record the run.
+and the family's loss over the val tree: token CE, or per-sample CTC over
+the target length for CRNN and TRBC), keeps the top-3 checkpoints by val
+accuracy plus `last.ckpt`, and writes the resumable `train_state.ckpt`
+(model with its batch-norm statistics, optimizer, step) and the
+`swa_state.ckpt` sidecar. `metrics.jsonl` and TensorBoard events record
+the run. ABINet trains in stages (abinet/system.py:106-110, 187-203): its
+sub-models apart for the first 8/18 of the steps, with the language model
+on its own LR, then jointly after one redraw of the alignment weights; or
+its language model alone with `model.lm_only`. At the end `swa.ckpt`
+holds the SWA average with batch-norm statistics re-estimated for it.
 
-Not ported yet (ROADMAP.md): several devices (queue A item 10), the other
-families' training, CTC validation, and compiled-step reuse across calls.
+Not ported yet (ROADMAP.md): several devices (queue A item 10) and
+compiled-step reuse across calls.
 """
 
 from __future__ import annotations
@@ -25,15 +31,20 @@ import numpy as np
 import torch
 
 from parseq_tpu_torch.data.module import SceneTextDataModule
+from parseq_tpu_torch.ops.ctc import ctc_loss
+from parseq_tpu_torch.ops.layers import ce_ignore_pad
 from parseq_tpu_torch.train import optim
 from parseq_tpu_torch.train.evaluate import BatchResult, score_decoded, summarize
 from parseq_tpu_torch.train.families import get_family
-from parseq_tpu_torch.train.steps import init_state, make_train_step, normalize_u8
+from parseq_tpu_torch.train.steps import (init_state, make_train_step, normalize_images,
+                                          normalize_u8)
 from parseq_tpu_torch.utils.checkpoint import save_checkpoint, save_topk
-from parseq_tpu_torch.utils.registry import create_model
+from parseq_tpu_torch.utils.registry import build_model
 from parseq_tpu_torch.utils.tbevents import TBEventWriter
 
 log = logging.getLogger(__name__)
+
+PRETRAIN_FRAC = 8 / 18  # ABINet's pretraining share of the steps (system.py:106-110)
 
 _KNOWN_DATA = {'root_dir', 'train_dir', 'batch_size', 'num_workers', 'augment',
                'remove_whitespace', 'normalize_unicode', 'min_image_dim', 'rotation', 'img_size',
@@ -86,8 +97,7 @@ def train(config: dict, work_dir, *, compute_dtype=torch.bfloat16, max_steps: in
                                   '(ROADMAP.md queue A item 10); set trainer.devices=1')
     family = get_family(name)
 
-    bundle = create_model(name, seed=seed, dtype=compute_dtype, device=device,
-                          **{k: v for k, v in mcfg.items() if k != 'name'})
+    bundle = build_model(name, mcfg, seed=seed, dtype=compute_dtype, device=device)
     cfg, tok, model = bundle.cfg, bundle.tokenizer, bundle.module
     if config.get('pretrained'):
         from parseq_tpu_torch.utils.registry import load_from_checkpoint
@@ -131,6 +141,13 @@ def train(config: dict, work_dir, *, compute_dtype=torch.bfloat16, max_steps: in
         grad_clip=tcfg.get('gradient_clip_val', 20.0), total_steps=total_steps, num_devices=1,
         accum=agb, swa=tcfg.get('swa', True), swa_epoch_start=tcfg.get('swa_epoch_start', 0.75))
     state = init_state(model, ocfg, accumulate=agb)
+    is_abinet = 'abinet' in name
+    lm_only = is_abinet and bool(mcfg.get('lm_only'))
+    staged = is_abinet and not lm_only
+    if is_abinet:
+        state['opt_state'] = optim.make_abinet_optimizer(
+            model.named_parameters(), ocfg, float(mcfg.get('l_lr', mcfg['lr'])),
+            int(PRETRAIN_FRAC * total_steps))
     params = list(model.parameters())
     ckpt_dir = work_dir / 'checkpoints'
 
@@ -152,11 +169,33 @@ def train(config: dict, work_dir, *, compute_dtype=torch.bfloat16, max_steps: in
     swa_start = max(1, int(ocfg.swa_epoch_start * total_micro)) if ocfg.swa else total_micro
 
     mb = max(1, int(tcfg.get('microbatches', 1)))
-    train_step = make_train_step(family, cfg, compute_dtype, microbatches=mb, accumulate=agb)
+    # keyed by `pretraining`: ABINet's staged training has a step for each stage
+    if staged:
+        steps_by_phase = {pre: make_train_step(family, cfg, compute_dtype, microbatches=mb,
+                                               accumulate=agb, pretraining=pre)
+                          for pre in (True, False)}
+    else:
+        steps_by_phase = {False: make_train_step(family, cfg, compute_dtype, microbatches=mb,
+                                                 accumulate=agb,
+                                                 **({'lm_only': True} if lm_only else {}))}
+    alignment_reset_done = not staged or start_step >= PRETRAIN_FRAC * total_micro
     perm_rng = np.random.default_rng(seed)
     jlog = JsonlLogger(work_dir / 'metrics.jsonl')
     tb = TBEventWriter(work_dir / 'tb')
     pad_id = len(tok) - 1
+
+    def batch_val_loss(logits, logp, labels):
+        """The family's loss of one val batch (its first len(labels) rows
+        real), as the JAX package's _val_post_ce / _val_post_ctc: (loss, numel)."""
+        pad = [''] * (logits.shape[0] - len(labels))
+        if family.val == 'ctc':
+            targets = torch.from_numpy(tok.encode(labels + pad, cfg.max_label_length)).to(device)
+            lengths = torch.from_numpy(tok.lengths(labels + pad, cfg.max_label_length)).to(device)
+            per = ctc_loss(logp, targets, lengths, reduction='none') / lengths.clamp(min=1)
+            return per[:len(labels)].sum() / max(len(labels), 1), len(labels)
+        enc = tok.encode(labels + pad, cfg.max_label_length)[:, 1:logits.shape[1] + 1]
+        enc[len(labels):] = pad_id  # padding rows count for nothing
+        return ce_ignore_pad(logits, torch.from_numpy(enc).to(device), pad_id, logits.shape[-1])
 
     def validate():
         model.eval()
@@ -167,14 +206,8 @@ def train(config: dict, work_dir, *, compute_dtype=torch.bfloat16, max_steps: in
                 if x.dtype == torch.uint8:
                     x = normalize_u8(x)
                 logits = model(x, dtype=compute_dtype)
-                B, T = logits.shape[:2]
-                enc = tok.encode(labels + [''] * (B - len(labels)), cfg.max_label_length)
-                targets = torch.from_numpy(enc[:, 1:T + 1]).long().to(device)
-                ok = (targets != pad_id) & (torch.arange(B, device=device)[:, None] < len(labels))
                 logp = torch.log_softmax(logits.float(), -1)
-                nll = -torch.gather(logp, -1, targets.clamp(0, logits.shape[-1] - 1)[..., None])
-                numel = ok.sum()
-                loss = (nll[..., 0] * ok).sum() / numel.clamp(min=1)
+                loss, numel = batch_val_loss(logits, logp, labels)
                 ids = logp.argmax(-1)  # lowest index on ties, as jnp.argmax
                 conf = torch.gather(logp.exp(), -1, ids[..., None])[..., 0]
                 preds, pred_probs = tok.decode_ids(ids.cpu().numpy(), conf.cpu().numpy())
@@ -200,10 +233,16 @@ def train(config: dict, work_dir, *, compute_dtype=torch.bfloat16, max_steps: in
                 break
             if epoch == start_epoch and bi < skip_batches:
                 continue
-            batch = {'images': images, **family.prepare(tok, labels, cfg, perm_rng)}
-            batch = {k: torch.from_numpy(np.asarray(v)).to(device, non_blocking=True)
-                     for k, v in batch.items()}
-            metrics = train_step(state, batch, _dropout_generator(device, seed, step))
+            pretraining = staged and step < PRETRAIN_FRAC * total_micro
+            if staged and not pretraining and not alignment_reset_done:
+                # once, at the switch (system.py:197-201); the optimizer keeps
+                # its moments for these parameters, as the JAX package's does
+                log.info('ABINet pretraining ends: redrawing the alignment model')
+                model.alignment_init(torch.Generator().manual_seed(seed + 1))
+                alignment_reset_done = True
+            batch = _to_device(family.prepare(tok, labels, cfg, perm_rng), images, device)
+            metrics = steps_by_phase[pretraining](state, batch,
+                                                  _dropout_generator(device, seed, step))
             step += 1
             if step % 50 == 0 or step == start_step + 1:
                 loss, gnorm = float(metrics['loss']), float(metrics['grad_norm'])
@@ -239,9 +278,48 @@ def train(config: dict, work_dir, *, compute_dtype=torch.bfloat16, max_steps: in
                 optim.swa_update(swa_state, params)
 
     if swa_state is not None and swa_state['n'] > 0:
-        names = [n for n, _ in model.named_parameters()]
-        sd = {**model.state_dict(), **dict(zip(names, swa_state['avg']))}
-        save_checkpoint(ckpt_dir / 'swa.ckpt', sd, cfg,
+        final = {k: v.clone() for k, v in model.state_dict().items()}
+        with torch.no_grad():
+            torch._foreach_copy_(params, swa_state['avg'])
+        n_bn = reestimate_batchnorm(model, family, cfg, tok, train_loader,
+                                    min(steps_per_epoch, 100), perm_rng, compute_dtype,
+                                    _dropout_generator(device, seed, 10 ** 9))
+        if n_bn:
+            log.info(f'SWA: re-estimated batch-norm statistics over {n_bn} batches')
+        save_checkpoint(ckpt_dir / 'swa.ckpt', model.state_dict(), cfg,
                         meta={'name': name, 'model_config': mcfg, 'swa': True})
+        model.load_state_dict(final)
     tb.close()
     return state, best_path
+
+
+def _to_device(prepared, images, device):
+    batch = {'images': images, **prepared}
+    return {k: torch.from_numpy(np.asarray(v)).to(device, non_blocking=True)
+            for k, v in batch.items()}
+
+
+@torch.no_grad()
+def reestimate_batchnorm(model, family, cfg, tok, loader, n_batches, perm_rng, compute_dtype,
+                         rng):
+    """Batch-norm running statistics for the weights now in `model` (the SWA
+    average), as the JAX package re-estimates them (loop.py:464-497):
+    train-mode forwards of the family's loss (no static keywords, dropout
+    on) over `n_batches` train batches of a fresh shuffle, each moving the
+    statistics by the momentum-0.1 EMA from where they stand (not
+    swa_utils.update_bn's reset and cumulative mean). Returns the batches
+    run: 0 when the model has no batch norm."""
+    if not any(isinstance(m, torch.nn.modules.batchnorm._BatchNorm) for m in model.modules()):
+        return 0
+    device = next(model.parameters()).device
+    model.train()
+    loader.set_epoch(10 ** 6)  # fresh shuffle, any order works
+    n = 0
+    for images, labels, _ in loader:
+        if n >= n_batches:
+            break
+        batch = normalize_images(_to_device(family.prepare(tok, labels, cfg, perm_rng), images,
+                                            device))
+        family.loss(model, cfg, batch, rng, compute_dtype)
+        n += 1
+    return n

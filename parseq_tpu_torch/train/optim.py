@@ -18,6 +18,7 @@ per step rather than a dozen launches per parameter).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -100,14 +101,21 @@ class AdamW:
     """AdamW after global-norm clipping, with the OneCycle (+ SWA) schedule.
 
     `step(params, grads)` updates the f32 params in place and returns the
-    global norm of `grads` before clipping (a 0-dim tensor, no host sync)."""
+    global norm of `grads` before clipping (a 0-dim tensor, no host sync).
+    `sched_of(name)`, if given, names another schedule (step -> LR) for a
+    parameter, or None for the main one; clipping stays one global norm."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
-    def __init__(self, named_params, cfg: OptimConfig):
+    def __init__(self, named_params, cfg: OptimConfig, sched_of=None):
         named_params = list(named_params)
         self.cfg = cfg
         self.sched = onecycle_schedule(cfg)
+        # schedule -> indices of the parameters it drives
+        self.groups = {}
+        for i, (name, _) in enumerate(named_params):
+            sched = (sched_of(name) if sched_of else None) or self.sched
+            self.groups.setdefault(sched, []).append(i)
         self.decay = decay_mask(named_params) if cfg.weight_decay else [False] * len(named_params)
         self.mu = [torch.zeros_like(p, dtype=torch.float32) for _, p in named_params]
         self.nu = [torch.zeros_like(p, dtype=torch.float32) for _, p in named_params]
@@ -134,7 +142,9 @@ class AdamW:
             idx = [i for i, d in enumerate(self.decay) if d]
             torch._foreach_add_([upd[i] for i in idx], [params[i] for i in idx],
                                 alpha=self.cfg.weight_decay)
-        torch._foreach_add_(params, upd, alpha=-self.sched(self.count))
+        for sched, idx in self.groups.items():
+            torch._foreach_add_([params[i] for i in idx], [upd[i] for i in idx],
+                                alpha=-sched(self.count))
         self.count = n
         return gnorm
 
@@ -145,6 +155,21 @@ class AdamW:
         for dst, src in zip(self.mu + self.nu, list(state['mu']) + list(state['nu'])):
             dst.copy_(src)
         self.count = int(state['count'])
+
+
+def make_abinet_optimizer(named_params, cfg: OptimConfig, l_lr: float, pretrain_end: int):
+    """ABINet's AdamW (parseq_tpu/train/optim.py:make_abinet_optimizer): the
+    language model's parameters (`language.*`) follow the OneCycle of `l_lr`
+    until optimizer step `pretrain_end`, then the main schedule; all others
+    follow the main schedule (the AdamW's `sched`)."""
+    main = onecycle_schedule(cfg)
+    l_base = onecycle_schedule(dataclasses.replace(cfg, lr=l_lr))
+
+    def l_sched(step):
+        return l_base(step) if step < pretrain_end else main(step)
+
+    return AdamW(named_params, cfg,
+                 lambda name: l_sched if name.startswith('language.') else None)
 
 
 def swa_init(params):

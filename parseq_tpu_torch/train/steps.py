@@ -38,7 +38,8 @@ def init_state(model, ocfg: optim.OptimConfig, accumulate=1):
             'accum': [torch.zeros_like(p) for p in params] if accumulate > 1 else None}
 
 
-def make_train_step(family, cfg, compute_dtype=torch.bfloat16, microbatches=1, accumulate=1):
+def make_train_step(family, cfg, compute_dtype=torch.bfloat16, microbatches=1, accumulate=1,
+                    **static):
     """family: train.families.TrainFamily. Returns
     train_step(state, batch: dict of tensors, rng) -> metrics dict.
 
@@ -48,8 +49,12 @@ def make_train_step(family, cfg, compute_dtype=torch.bfloat16, microbatches=1, a
     ``accumulate`` > 1 (trainer.accumulate_grad_batches) applies the update
     on every `accumulate`-th call with the mean of those calls' gradients
     (optax.MultiSteps in the JAX package). rng: a torch.Generator for
-    dropout, or None. Metrics: loss (mean over microbatches), numel, and
-    grad_norm of this call's gradients, as 0-dim tensors (no host sync)."""
+    dropout, or None. `static` keywords go to the family's loss (ABINet's
+    pretraining / lm_only). A model in train mode moves its batch-norm
+    running statistics once per microbatch, in order (the JAX package's
+    scan threads them so). Metrics: loss (mean over microbatches), numel,
+    and grad_norm of this call's gradients, as 0-dim tensors (no host
+    sync)."""
 
     def train_step(state, batch, rng):
         model = state['model']
@@ -66,11 +71,12 @@ def make_train_step(family, cfg, compute_dtype=torch.bfloat16, microbatches=1, a
             # per-sample arrays are split; shared ones (the perm set) are not
             mbatch = {k: v[i * mb:(i + 1) * mb] if v.dim() > 0 and v.shape[0] == B else v
                       for k, v in batch.items()}
-            loss, numel = family.loss(model, cfg, mbatch, rng, compute_dtype)
+            loss, numel = family.loss(model, cfg, mbatch, rng, compute_dtype, **static)
             loss.backward()
             loss_sum += loss.detach()
             numel_sum += numel
-        grads = [p.grad for p in params]
+        # a parameter the loss does not reach (ABINet's lm_only) has a zero gradient
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
         if m > 1:
             torch._foreach_div_(grads, m)
         state['step'] += 1

@@ -227,6 +227,14 @@ def _bundle(name, model_cfg, *, seed=0, dtype=torch.bfloat16, device='cuda', sta
                        raw_config=model_cfg)
 
 
+def build_model(name: str, model_cfg: dict, *, seed: int = 0, dtype=torch.bfloat16,
+                device='cuda') -> ModelBundle:
+    """A model with random weights from `seed` built from an already composed
+    model config (the train loop's: `name`, e.g. 'abinet-lm', names no
+    experiment file of its own)."""
+    return _bundle(name, dict(model_cfg), seed=seed, dtype=dtype, device=device)
+
+
 def create_model(experiment: str, *, seed: int = 0, dtype=torch.bfloat16, device='cuda',
                  config_root=None, **kwargs) -> ModelBundle:
     """Compose the config for `experiment` and build a model with random

@@ -28,6 +28,8 @@ KERNEL_MODULES = ('ar_kernel', 'attention', 'flash_bwd', 'encoder_kernel')
 # The CNN families' read path, the evaluation and the bench CLI.
 READ_MODULES = ('ops.rnn', 'ops.grid_sample', 'models.crnn', 'models.trba', 'train.evaluate',
                 'cli.test', 'cli.bench', 'utils.flops')
+# Training of every family.
+TRAIN_MODULES = ('ops.ctc', 'train.families', 'train.loop', 'train.optim', 'cli.train')
 
 
 def test_port_imports_without_jax():
@@ -36,7 +38,8 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     walked, shared = out.stdout.split('\n')[:2]
     assert {f'parseq_tpu_torch.ops.{m}' for m in KERNEL_MODULES} <= set(walked.split(','))
-    assert {f'parseq_tpu_torch.{m}' for m in READ_MODULES} <= set(walked.split(','))
+    assert {f'parseq_tpu_torch.{m}' for m in READ_MODULES + TRAIN_MODULES} <= set(
+        walked.split(','))
     assert shared == '', f'the port loaded modules of the JAX package: {shared}'
 
 

@@ -138,11 +138,13 @@ def test_gradient_accumulation_updates_every_k_calls():
     assert not torch.equal(before['head.weight'], model.state_dict()['head.weight'])
 
 
-def test_other_families_raise():
-    with pytest.raises(NotImplementedError, match='item 14'):
-        get_family('vitstr')
-    with pytest.raises(NotImplementedError, match='item 15'):
-        get_family('abinet')
+@pytest.mark.parametrize('name,val', [('vitstr', 'ce'), ('crnn', 'ctc'), ('trbc', 'ctc'),
+                                      ('trba', 'ce'), ('abinet', 'ce'), ('abinet-lm', 'ce')])
+def test_get_family_returns_each_adapter(name, val):
+    """Every family trains (tests/test_torch_train_families.py); CRNN and
+    TRBC validate with the CTC loss, the others with CE."""
+    family = get_family(name)
+    assert callable(family.prepare) and callable(family.loss) and family.val == val
 
 
 @pytest.mark.parametrize('split', ['train', 'val'])
