@@ -14,7 +14,8 @@ from a seed), in phases, each printing its result:
      version on its shared card check (ops/ar_kernel.py: check_run,
      teacher-forced on the kernel's picks; |kernel - plain| relative to
      max|plain| within CHECK_LIMITS in max and mean), at PARSeq-S's M = 128
-     and at patch16-224's M = 196, at B = 1, 7, 256, and on check_model's
+     and at patch16-224's M = 196, at B = 1, 7, 256 (PARSeq-S also at the
+     serving rungs of phase 10, B = 2, 4, 8, 16, 32), and on check_model's
      weights at B = 9 with each rows per block R = 1, 2, 4, 8 forced, at M =
      1, 128, 196 and for a D = 64, 2-head decoder; B2 (fused no-split
      attention) at (h, D) = (6, 384) and L = 1, 5, 16, 17, 128, 129, 196
@@ -105,7 +106,27 @@ from a seed), in phases, each printing its result:
      in float64 (float64_mode), within CARD_CPU_LIMITS and CARD_CPU_TRUNK,
      which a planted fault (batch norms left in eval mode on the card) must
      fail; each family's step time (median of 4 after a warm-up), img/s,
-     peak memory, device-busy share and kernel launches a step.
+     peak memory, device-busy share and kernel launches a step;
+ 10. main paths of serving and tuning: serve.InferenceServer (max_batch 32,
+     max_wait 2 ms, warmed up) serves PARSeq-S with phase 4's weights, bf16,
+     its classifier's weight scaled and its bias raised on EOS and a few
+     letters so that the direct reads are varied and decide every step
+     (both required):
+     1,024 distinct PIL-rendered words as uint8 32x128 crops from 8 client
+     threads (4 requests in flight each), 16 of them as PNG bytes through
+     cli.serve.make_handler on a live 127.0.0.1 HTTP server, and 64 from one
+     client; every served (text, confidence) is held against a read of the
+     same crop alone (serve.server: direct_reads, check_served,
+     CHECK_LIMITS), which a planted fault (a drain that swaps the results of
+     two requests of a batch) must fail; B1's launch count, set to 0 before
+     the warm-up, must equal the batches served plus the warm-up rungs;
+     served img/s, request latency p50 / p99, batches, mean fill and padded
+     share, at 8 clients and at 1; preprocess_torch on the card against the
+     CPU on uint8 crops of 20x50 and 100x300; then cli.tune (+experiment=
+     parseq, full width and depth, batch 384, 2 trials of 4 steps, one
+     rung) on phase 5's synthetic LMDB, written again: results.json with two
+     trials of distinct LR, a finite best LR, B4 launches in the trials'
+     steps and B1 launches in their validations, each trial's wall time.
 
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the repository beside it, it fails and prints no result. The last lines
@@ -126,6 +147,9 @@ import string
 import sys
 import tempfile
 import time
+import threading
+import urllib.request
+from collections import Counter, deque
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -150,6 +174,8 @@ B1_ROWS = (1, 2, 4, 8)
 B1_RAGGED_BATCH = 9
 B1_MEMORY_ROWS = (1, 128, 196)
 B1_TIMED_BATCHES = (1, 7, TIMED_BATCH)
+# B1 also at every batch phase 10 serves PARSeq-S in: the rung ladder of
+# serve.server up to SERVE_MAX_BATCH, those not in BATCHES already.
 # B2 and B3 vs plain: the shared card check of ops/attention.py (inputs
 # from check_operands, limits CHECK_LIMITS), at every length class of the
 # kernel: one row, ragged single tiles, PARSeq-S's 128, the L >= 192 users
@@ -267,6 +293,37 @@ CARD_CPU_TRUNK = {'crnn': (('cnn.',), 5e-2),
                   'abinet': (('vision.backbone.', 'vision.attention.', *_LM_TRUNK), 5e-2),
                   'abinet-lm': (_LM_TRUNK, 5e-3)}
 BATCH_NORM_FAMILIES = ('crnn', 'trba', 'trbc', 'abinet')  # the planted fault's
+# Phase 10: serving. 8 clients keep 4 requests in flight each, 32 in all (the
+# largest rung); the 1-client run gives B = 1 latency through the server.
+SERVE_WORDS = 1024
+SERVE_CLIENTS = 8
+SERVE_WINDOW = 4
+SERVE_HTTP = 16
+SERVE_SINGLE = 64
+SERVE_MAX_BATCH = 32
+SERVE_WAIT_MS = 2.0
+# Phase 4's weights read '' from every crop (EOS_BIAS): a check of served
+# against direct reads would see only the first decode step. Before serving,
+# the classifier's bias of EOS and of SERVE_LETTERS is set SERVE_BIAS above
+# the largest of the others, and its weight scaled by SERVE_HEAD_SCALE, so
+# that what the crop gives the decoder moves the greedy picks: varied reads
+# that decide every step. On an H100 this gives 209 distinct strings of
+# 1,024, every one 26 characters long (EOS never wins), so the check holds
+# all 26 steps of each read. At least SERVE_MIN_DISTINCT of the direct reads
+# must differ, and their mean length be at least SERVE_MIN_LENGTH.
+SERVE_LETTERS = 'abcd'
+SERVE_BIAS = 3.0
+SERVE_HEAD_SCALE = 16.0
+SERVE_MIN_DISTINCT = 64
+SERVE_MIN_LENGTH = 8.0
+# preprocess_torch on the card against the CPU: f32 both, the same
+# arithmetic in another order.
+PREPROCESS_CROPS = ((20, 50), (100, 300))
+PREPROCESS_ATOL = 1e-5
+# Phase 10: tuning. Two PARSeq-S trials of 4 steps in one rung; the batch
+# keeps its 384.
+TUNE_TRIALS = 2
+TUNE_STEPS = 4
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, bf16 tensor
 # cores, f32 outside the tensor cores.
 HBM_BPS = 3.35e12
@@ -423,6 +480,18 @@ def write_lmdb(path, words):
             w.put(f'label-{i:09d}'.encode(), word.encode())
 
 
+def write_train_lmdb(data_root, rng, charset):
+    """The synthetic LMDB of phases 5 and 10: TRAIN_WORDS train and VAL_WORDS
+    val words of 3-10 digits and letters drawn from `rng`, PIL-rendered.
+    Returns the words."""
+    letters = np.array(list(charset[:62]))  # digits and letters
+    words = [''.join(rng.choice(letters, rng.integers(3, 11)))
+             for _ in range(TRAIN_WORDS + VAL_WORDS)]
+    write_lmdb(data_root / 'train' / 'real' / 'synthetic', words[:TRAIN_WORDS])
+    write_lmdb(data_root / 'val' / 'synthetic', words[TRAIN_WORDS:])
+    return words
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -432,6 +501,7 @@ def main():
     from parseq_tpu_torch.models.abinet import ABINet
     from parseq_tpu_torch.models.parseq import PARSeq, PARSeqConfig
     from parseq_tpu_torch.ops import ar_kernel, attention, encoder_kernel, flash_bwd
+    from parseq_tpu_torch.serve.server import _rungs
     from parseq_tpu_torch.utils.registry import create_model
 
     from experiments import torch_encoder_kernel_bench as enc_bench
@@ -458,6 +528,7 @@ def main():
 
     phase('3 kernel vs plain')
     rng = np.random.default_rng(SEED)
+    serve_rng = np.random.default_rng(SEED + 6)
     b1_err = b2_err = b3_err = b4_err = b5_err = 0.0
     memories = {}
     b1_models = {}
@@ -469,9 +540,11 @@ def main():
             model.init_weights(torch.Generator().manual_seed(SEED))
             model = model.to(dev).eval()
             b1_models[name] = model
-            for B in BATCHES:
+            serving = [B for B in _rungs(SERVE_MAX_BATCH) if B not in BATCHES]
+            for B, gen in (*((B, rng) for B in BATCHES),
+                           *((B, serve_rng) for B in serving if name == 'PARSeq-S')):
                 images = torch.from_numpy(
-                    rng.uniform(-1, 1, (B, *cfg.img_size, 3)).astype(np.float32)).to(dev)
+                    gen.uniform(-1, 1, (B, *cfg.img_size, 3)).astype(np.float32)).to(dev)
                 memory = model.encode(images.to(torch.bfloat16)).contiguous()
                 memories[name, B] = memory
                 b1_err = max(b1_err, b1_check(f'B1 {name} B={B} M={memory.shape[1]}', model,
@@ -836,12 +909,22 @@ def main():
         x = torch.rand(1, *bundle.img_size, 3, generator=gen, device=dev)
         print(f'MACs per image {name} (utils/flops.py through the plain paths): '
               f'{per_image_flops(bundle, x) / 1e9:.4f} G')
+    serve_bundle = bundles['parseq']  # phase 10 serves these weights
     del bundles, cnn_bundles, b1_models, memories, b5_ops
     torch.cuda.empty_cache()
 
     phase(f'9 main paths on cuda: ViTSTR, CRNN, TRBC, TRBA, ABINet and its language model '
           f'train through cli.train [{card}]')
     family_info = train_families_phase(card, main_launches)
+
+    phase(f'10 main paths on cuda: serving and tuning PARSeq-S [{card}]')
+    t0 = time.perf_counter()
+    serve_info = serve_phase(serve_bundle, card)
+    del serve_bundle
+    tune_info = tune_phase(card)
+    main_launches['B1'] += serve_info['b1'] + tune_info['b1']
+    main_launches['B4'] += tune_info['b4']
+    print(f'phase 10 wall {time.perf_counter() - t0:.1f} s')
 
     b1_ms, b2_ms, b4_ms = b1_bound(TIMED_BATCH, 128, PARSeqConfig()), b2_bound(
         TIMED_BATCH, 197, 6, 384), b4_bound(*B4_SHAPES[0])
@@ -855,6 +938,7 @@ def main():
          'plain_ms': timed['B1', 'PARSeq-S', TIMED_BATCH][1],
          'bound_ms': b1_ms[0], 'bound_us': b1_ms[0] * 1e3, 'bound_by': b1_ms[1],
          'library_ms': None, 'at': f'B={TIMED_BATCH} M=128 (PARSeq-S)',
+         'launches_serving': serve_info['b1'], 'launches_tuning_validation': tune_info['b1'],
          'prep_ms': timed['B1', 'PARSeq-S', TIMED_BATCH][2],
          **{f'ms_b{B}': timed['B1', 'PARSeq-S', B][0] for B in B1_TIMED_BATCHES[:-1]}},
         {'name': 'fused_attention_nosplit', 'route': 'cuda',
@@ -870,6 +954,7 @@ def main():
          'source': 'parseq_tpu_torch/csrc/flash_bwd.cu',
          'replaces': 'parseq_tpu/ops/flash_bwd.py:64',
          'launches': main_launches['B4'], 'max_abs_err': b4_err,
+         'launches_tuning': tune_info['b4'],
          'ms': timed['B4', 48][0], 'plain_ms': timed['B4', 48][1],
          'bound_ms': b4_ms[0], 'bound_us': b4_ms[0] * 1e3, 'bound_by': b4_ms[1],
          'library_ms': timed['B4', 48][2],
@@ -1106,16 +1191,12 @@ def train_phase(dev, card, main_launches):
     mb = config['trainer']['microbatches']
     depth = config['model']['enc_depth']
     rng = np.random.default_rng(SEED)
-    letters = np.array(list(charset[:62]))  # digits and letters
-    words = [''.join(rng.choice(letters, rng.integers(3, 11)))
-             for _ in range(TRAIN_WORDS + VAL_WORDS)]
     root = Path(__file__).resolve().parent / 'build'
     root.mkdir(exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix='smoke-train-', dir=root))
     try:
         t0 = time.perf_counter()
-        write_lmdb(tmp / 'data' / 'train' / 'real' / 'synthetic', words[:TRAIN_WORDS])
-        write_lmdb(tmp / 'data' / 'val' / 'synthetic', words[TRAIN_WORDS:])
+        words = write_train_lmdb(tmp / 'data', rng, charset)
         print(f'synthetic LMDB: {TRAIN_WORDS} train / {VAL_WORDS} val PIL-rendered words in '
               f'{time.perf_counter() - t0:.1f} s')
 
@@ -1612,6 +1693,250 @@ def train_families_phase(card, main_launches):
         torch.cuda.empty_cache()
     print(f'training families [{card}]: ' + json.dumps(info['steps']))
     return info
+
+
+def drive(server, images, clients, window):
+    """`clients` threads submit `images` (client c takes images c, c +
+    clients, ...), each keeping up to `window` requests in flight. Returns
+    the results in image order and the run's numbers: img/s over its wall
+    time, request latency (submit to result) p50 / p99, and the batches it
+    made, their mean fill and padded share."""
+    results, latency = [None] * len(images), [0.0] * len(images)
+    before = dict(server.stats)
+
+    def timed_submit(i):
+        t0 = time.perf_counter()
+        future = server.submit(images[i])
+
+        def done(_):
+            latency[i] = (time.perf_counter() - t0) * 1e3
+
+        future.add_done_callback(done)
+        return future
+
+    def client(c):
+        pending = deque()
+        for i in range(c, len(images), clients):
+            pending.append((i, timed_submit(i)))
+            if len(pending) == window:
+                j, f = pending.popleft()
+                results[j] = f.result(timeout=120)
+        for j, f in pending:
+            results[j] = f.result(timeout=120)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as pool:
+        list(pool.map(client, range(clients)))
+    wall = time.perf_counter() - t0
+    n = {k: server.stats[k] - before[k] for k in before}
+    q = statistics.quantiles(latency, n=100, method='inclusive')
+    return results, {'images': len(images), 'wall_s': wall, 'img_per_s': len(images) / wall,
+                     'latency_ms_p50': statistics.median(latency), 'latency_ms_p99': q[98],
+                     'batches': n['batches'], 'mean_fill': n['requests'] / n['batches'],
+                     'padded_share': n['padded'] / (n['requests'] + n['padded'])}
+
+
+def serve_crops(img_size):
+    """SERVE_WORDS distinct words of 3-10 letters and digits, rendered:
+    (PNG bytes, uint8 crops of img_size)."""
+    from PIL import Image
+
+    from parseq_tpu_torch.data.transforms import preprocess_pil_u8
+
+    rng = np.random.default_rng(SEED + 4)
+    letters = np.array(list(string.digits + string.ascii_letters))
+    words = list(dict.fromkeys(''.join(rng.choice(letters, rng.integers(3, 11)))
+                               for _ in range(2 * SERVE_WORDS)))[:SERVE_WORDS]
+    pngs = [render_word(w) for w in words]
+    crops = []
+    for png in pngs:
+        with Image.open(io.BytesIO(png)) as img:
+            crops.append(preprocess_pil_u8(img, img_size))
+    return pngs, crops
+
+
+def serve_phase(bundle, card):
+    """PARSeq-S (phase 4's weights, bf16) served through serve.InferenceServer
+    and cli.serve's HTTP handler; every served read held against a read of
+    the same crop alone, a planted swap failing that check, B1's launches
+    counted, preprocess_torch on the card against the CPU. Returns B1's
+    launches while serving and the numbers measured."""
+    from http.server import ThreadingHTTPServer
+
+    from parseq_tpu_torch.cli.serve import make_handler
+    from parseq_tpu_torch.data.transforms import preprocess_torch
+    from parseq_tpu_torch.ops import ar_kernel
+    from parseq_tpu_torch.serve import InferenceServer
+    from parseq_tpu_torch.serve.server import CHECK_LIMITS, check_served, direct_reads
+
+    head, ids = bundle.module.head, [bundle.tokenizer.eos_id,
+                                     *bundle.tokenizer._tok2ids(SERVE_LETTERS)]
+    with torch.no_grad():
+        head.weight *= SERVE_HEAD_SCALE
+        others = head.bias[[i for i in range(head.bias.numel()) if i not in ids]]
+        head.bias[ids] = others.max() + SERVE_BIAS
+    pngs, crops = serve_crops(bundle.img_size)
+    t0 = time.perf_counter()
+    direct = direct_reads(bundle, crops)
+    texts, confs, gaps = direct
+    # what a swap of two neighbours would show: texts or confidences apart
+    apart = sum(not check_served([(texts[i + 1], confs[i + 1])],
+                                 ([texts[i]], [confs[i]], [gaps[i]]))[0]
+                for i in range(len(texts) - 1))
+    print(f'direct reads of {len(crops)} distinct rendered words, one at a time: '
+          f'{time.perf_counter() - t0:.1f} s; {len(set(texts))} distinct strings '
+          f'(most common {Counter(texts).most_common(1)[0]}); '
+          f'confidence {min(confs):.4g} ... {max(confs):.4g}; smallest top-1 - top-2 gap '
+          f'{min(gaps):.4g} ... {max(gaps):.4g}, above {CHECK_LIMITS["gap"]} in '
+          f'{sum(g > CHECK_LIMITS["gap"] for g in gaps)}; mean length '
+          f'{statistics.mean(map(len, texts)):.2f}; neighbouring reads the check tells '
+          f'apart {apart} of {len(texts) - 1}')
+    if len(set(texts)) < SERVE_MIN_DISTINCT or statistics.mean(map(len, texts)) < SERVE_MIN_LENGTH:
+        raise AssertionError(f'the direct reads are too alike for the check to see the decode '
+                             f'steps: {len(set(texts))} distinct strings (at least '
+                             f'{SERVE_MIN_DISTINCT}), mean length '
+                             f'{statistics.mean(map(len, texts)):.2f} (at least {SERVE_MIN_LENGTH})')
+
+    server = InferenceServer(bundle, max_batch=SERVE_MAX_BATCH, max_wait_ms=SERVE_WAIT_MS)
+    server.start()
+    httpd = ThreadingHTTPServer(('127.0.0.1', 0), make_handler(server, bundle))
+    http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))  # localhost only
+    url = f'http://127.0.0.1:{httpd.server_address[1]}'
+
+    def post(png):
+        req = urllib.request.Request(f'{url}/v1/read', data=png, method='POST')
+        with opener.open(req, timeout=60) as r:
+            out = json.load(r)
+        return out['text'], out['confidence']
+
+    try:
+        ar_kernel.launches = 0
+        t0 = time.perf_counter()
+        server.warmup()
+        warmup_s = time.perf_counter() - t0
+        runs = {}
+        served, runs['8 clients'] = drive(server, crops, SERVE_CLIENTS, SERVE_WINDOW)
+        http_thread.start()
+        with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+            http_served = list(pool.map(post, pngs[:SERVE_HTTP]))
+        with opener.open(f'{url}/healthz', timeout=60) as r:
+            health = json.load(r)
+        single, runs['1 client'] = drive(server, crops[:SERVE_SINGLE], 1, 1)
+        launches, stats = ar_kernel.launches, dict(server.stats)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.stop()
+    if not health['ok'] or health['stats']['requests'] != SERVE_WORDS + SERVE_HTTP:
+        raise AssertionError(f'/healthz: {health}')
+    if launches != stats['batches'] + len(server.rungs):
+        raise AssertionError(f'serving launched B1 {launches} times for {stats["batches"]} '
+                             f'batches and {len(server.rungs)} warm-up rungs')
+    for what, got in (('8 clients', served), ('HTTP', http_served), ('1 client', single)):
+        n = len(got)
+        ok, wrong, worst = check_served(got, (texts[:n], confs[:n], gaps[:n]))
+        if not ok:
+            raise AssertionError(f'served reads ({what}) disagree with the direct reads: '
+                                 f'{wrong} texts differ where the gap > {CHECK_LIMITS["gap"]}, '
+                                 f'worst relative confidence difference {worst:.3e} (limit '
+                                 f'{CHECK_LIMITS["confidence"]})')
+        print(f'served ({what}): {n} reads agree with the direct reads: texts equal where the gap '
+              f'> {CHECK_LIMITS["gap"]}, {sum(t == w for (t, _), w in zip(got, texts))} of {n} '
+              f'equal in all; worst relative confidence difference {worst:.3e} (limit '
+              f'{CHECK_LIMITS["confidence"]})')
+    print(f'B1 launches while serving {launches} = {stats["batches"]} batches + '
+          f'{len(server.rungs)} warm-up rungs {server.rungs} (warm-up {warmup_s:.2f} s)')
+    for what, r in runs.items():
+        print(f'serving {bundle.name} {str(bundle.dtype)[6:]}, {what} [{card}]: '
+              f'{r["img_per_s"]:.1f} img/s over '
+              f'{r["images"]} requests in {r["wall_s"]:.3f} s; latency p50 '
+              f'{r["latency_ms_p50"]:.3f} ms, p99 {r["latency_ms_p99"]:.3f} ms; '
+              f'{r["batches"]} batches, mean fill {r["mean_fill"]:.2f}, padded share '
+              f'{r["padded_share"]:.3f}')
+
+    class SwappingServer(InferenceServer):
+        """The planted fault: a drain that hands the first two requests of
+        a batch each other's results."""
+
+        def _resolve(self, reqs, ids, conf):
+            super()._resolve([reqs[1], reqs[0], *reqs[2:]] if len(reqs) > 1 else reqs, ids, conf)
+
+    fault = SwappingServer(bundle, max_batch=SERVE_MAX_BATCH, max_wait_ms=SERVE_WAIT_MS).start()
+    try:
+        swapped, fault_run = drive(fault, crops, SERVE_CLIENTS, SERVE_WINDOW)
+    finally:
+        fault.stop()
+    ok, wrong, worst = check_served(swapped, direct)
+    if ok:
+        raise AssertionError(f'the planted swap passed the check ({fault_run["batches"]} '
+                             f'batches): wrong texts {wrong}, worst confidence {worst:.3e}')
+    bad = sum(not check_served([s], ([t], [c], [g]))[0]
+              for s, t, c, g in zip(swapped, texts, confs, gaps))
+    print(f'planted fault (two results of a batch swapped, {fault_run["batches"]} batches): '
+          f'fails the check, {bad} of {len(swapped)} reads out of limits ({wrong} texts where '
+          f'the gap is clear), worst relative confidence difference {worst:.3e}')
+
+    gen = np.random.default_rng(SEED + 5)
+    for h, w in PREPROCESS_CROPS:
+        x = gen.integers(0, 256, (8, h, w, 3), dtype=np.uint8)
+        got = preprocess_torch(x, bundle.img_size, device='cuda')
+        want = preprocess_torch(x, bundle.img_size)
+        err = float((got.cpu() - want).abs().max())
+        if not (got.device.type == 'cuda' and got.shape == want.shape and err <= PREPROCESS_ATOL):
+            raise AssertionError(f'preprocess_torch {h}x{w}: card vs CPU {err} '
+                                 f'(limit {PREPROCESS_ATOL})')
+        print(f'preprocess_torch uint8 {h}x{w} -> {tuple(bundle.img_size)}: card vs CPU '
+              f'max_abs_err={err:.3e} (limit {PREPROCESS_ATOL})')
+    return {'b1': launches, 'runs': runs}
+
+
+def tune_phase(card):
+    """cli.tune searches PARSeq-S's LR (+experiment=parseq, TUNE_TRIALS
+    trials of TUNE_STEPS steps, one rung) on phase 5's synthetic LMDB,
+    written again. Returns B1's and B4's launches in it."""
+    from parseq_tpu_torch.cli import tune as tune_cli
+    from parseq_tpu_torch.ops import ar_kernel, flash_bwd
+    from parseq_tpu_torch.utils.config import compose
+
+    config = compose('parseq')
+    need_b4 = (config['model']['enc_depth'] * config['trainer']['microbatches'] * TUNE_STEPS
+               * TUNE_TRIALS)
+    root = Path(__file__).resolve().parent / 'build'
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix='smoke-tune-', dir=root))
+    try:
+        write_train_lmdb(tmp / 'data', np.random.default_rng(SEED),
+                         config['model']['charset_train'])
+        flash_bwd.launches = 0
+        ar_kernel.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            tune_cli.main(['+experiment=parseq', f'data.root_dir={tmp / "data"}',
+                           '--num_samples', str(TUNE_TRIALS), '--rung_steps', str(TUNE_STEPS),
+                           '--rungs', '1', '--work_dir', str(tmp / 'tune'), '--device', 'cuda'])
+        wall = time.perf_counter() - t0
+        b4, b1 = flash_bwd.launches, ar_kernel.launches
+        last = json.loads(out.getvalue().strip().splitlines()[-1])
+        results = json.loads((tmp / 'tune' / 'results.json').read_text())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lrs = {r['lr'] for r in results}
+    if not (len(results) == TUNE_TRIALS and len(lrs) == TUNE_TRIALS
+            and math.isfinite(last['best_lr']) and last['best_lr'] in lrs
+            and all(math.isfinite(r['val_loss']) for r in results)):
+        raise AssertionError(f'cli.tune: {last} {results}')
+    if b4 < need_b4 or b1 < TUNE_TRIALS:
+        raise AssertionError(f'cli.tune launched B4 {b4} times (expected >= {need_b4}) and B1 '
+                             f'{b1} times (expected >= {TUNE_TRIALS}, one a validation)')
+    print(f'cli.tune +experiment=parseq [{card}]: {json.dumps(last)}; {wall:.1f} s wall; '
+          f'trials (lr, val_NED, val_loss, wall s): '
+          + '; '.join(f'{r["lr"]:.3e}, {r["val_NED"]:.3f}, {r["val_loss"]:.4f}, {r["wall_s"]:.1f}'
+                      for r in results)
+          + f'; B4 launches {b4} (>= {need_b4}), B1 launches {b1}')
+    return {'b1': b1, 'b4': b4}
+
 
 if __name__ == '__main__':
     sys.exit(main())

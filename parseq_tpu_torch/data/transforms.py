@@ -1,5 +1,5 @@
-"""Host-side image preprocessing (port of the PIL half of
-parseq_tpu/data/transforms.py).
+"""Image preprocessing (port of parseq_tpu/data/transforms.py): the PIL
+path on the host, and `preprocess_torch` on a device.
 
 Resize((H, W), bicubic, not aspect-preserving) -> [0, 1] -> Normalize(0.5, 0.5):
 the output is NHWC float32 in [-1, 1], the layout of the port's public
@@ -58,3 +58,28 @@ def load_image(path, img_size=(32, 128), rotation: int = 0) -> np.ndarray:
 
 def batch_images(paths, img_size=(32, 128), rotation: int = 0) -> np.ndarray:
     return np.stack([load_image(p, img_size, rotation) for p in paths])
+
+
+def preprocess_torch(images, img_size=(32, 128), device=None):
+    """Resize and normalise a batch on a device: uint8 or float NHWC ->
+    float32 NHWC in [-1, 1] on `device` (default: where `images` lie).
+    Counterpart of parseq_tpu/data/transforms.py:preprocess_jax.
+
+    uint8 becomes f32 / 255 first. The resize is bicubic with antialiasing,
+    which is what `jax.image.resize(..., method='cubic')` computes: without
+    antialias torch's bicubic uses another kernel coefficient (-0.75, not
+    -0.5) and no widening when it shrinks, and misses by up to 0.66. The
+    result is clamped to [0, 1], as PIL's bicubic clamps to the uint8 range,
+    then (y - 0.5) / 0.5. Like preprocess_jax, it is not bit-identical to
+    the PIL path (other boundary handling)."""
+    import torch
+    import torch.nn.functional as F
+
+    x = torch.as_tensor(images)
+    if device is not None:
+        x = x.to(device)
+    x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(img_size), mode='bicubic',
+                      align_corners=False, antialias=True)
+    y = y.clamp(0.0, 1.0)
+    return ((y - 0.5) / 0.5).permute(0, 2, 3, 1).contiguous()

@@ -1,14 +1,16 @@
-"""Pretrained-weight resolution of the port, offline: the weights table, the
-checksum cache and loading (counterpart of parseq_tpu/utils/pretrained.py,
-without its download).
+"""Pretrained-weight resolution of the port: the weights table, the checksum
+cache, the download and loading (counterpart of parseq_tpu/utils/pretrained.py).
 
 Each released weight file of the reference is named
 ``<model>-<8-hex-sha256-prefix>.pt``, and torch.hub's ``check_hash=True``
 verifies that prefix. This module keeps the table, that filename and hash
 convention and the cache-directory search (torch.hub's own cache included,
-so weights the reference fetched are reused). Nothing is downloaded: a file
-that is not cached raises PretrainedWeightsError naming the file and the
-directories searched.
+so weights the reference fetched are reused). A file that is not cached is
+downloaded from the table's URL into the package's cache directory when
+`download_if_missing` is set (the default) and the host has a network; the
+download is checked against the prefix before it takes the file's name.
+Offline, or with the flag off, a missing file raises PretrainedWeightsError
+naming the file and the directories searched.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import hashlib
 import os
 import re
+import urllib.request
 from pathlib import Path
 
 WEIGHTS_URL = {
@@ -85,25 +88,61 @@ def find_cached(experiment: str) -> Path | None:
     return None
 
 
-def get_pretrained_path(experiment: str) -> Path:
-    """The cached, verified weight file of `experiment`. The port does not
-    download: a missing file raises with its name and the directories
-    searched."""
+def download(experiment: str, dest_dir=None) -> Path:
+    """Fetch the released weights of `experiment` into `dest_dir` (default:
+    the package's cache directory). The bytes go to a `.partial` file, which
+    is deleted if its sha256 does not start with the file name's prefix, and
+    renamed to the file's name if it does. Needs a network (any URL scheme
+    urllib reads: the tests serve `file://` URLs)."""
+    fname = expected_filename(experiment)
+    url = WEIGHTS_URL[experiment]
+    dest_dir = Path(dest_dir) if dest_dir else cache_dirs()[-2]
+    dest_dir.mkdir(parents=True, exist_ok=True)
+    dest = dest_dir / fname
+    tmp = dest.with_suffix('.partial')
+    try:
+        urllib.request.urlretrieve(url, tmp)
+        if not sha256_prefix_ok(tmp, expected_hash_prefix(experiment)):
+            raise PretrainedWeightsError(
+                f'downloaded {url} fails its sha256 check (expected prefix '
+                f'{expected_hash_prefix(experiment)})')
+    except BaseException:
+        tmp.unlink(missing_ok=True)
+        raise
+    os.replace(tmp, dest)
+    return dest
+
+
+def get_pretrained_path(experiment: str, *, download_if_missing: bool = True) -> Path:
+    """The cached, verified weight file of `experiment`; downloaded into the
+    cache first when it is missing and `download_if_missing` is set. A file
+    that is neither cached nor fetched raises with its name and the
+    directories searched."""
     cached = find_cached(experiment)
     if cached is not None:
         return cached
-    raise PretrainedWeightsError(
-        f"Pretrained weights for '{experiment}' not found in cache: place "
-        f'{expected_filename(experiment)} in one of {[str(d) for d in cache_dirs()]}')
+    where = (f'place {expected_filename(experiment)} in one of '
+             f'{[str(d) for d in cache_dirs()]}')
+    if download_if_missing:
+        try:
+            return download(experiment)
+        except OSError as e:
+            raise PretrainedWeightsError(
+                f"Pretrained weights for '{experiment}' not found in cache and the "
+                f'download failed ({e}): {where}') from e
+    raise PretrainedWeightsError(f"Pretrained weights for '{experiment}' not found in cache: "
+                                 f'{where}')
 
 
-def load_pretrained(experiment: str, **kwargs):
+def load_pretrained(experiment: str, *, download_if_missing: bool = True, **kwargs):
     """-> ModelBundle with the released weights of `experiment`, built from
     the experiment's config (so parseq-tiny gets its 192-dim geometry);
-    keyword arguments as for `registry.load_from_checkpoint`."""
+    `download_if_missing` as for get_pretrained_path, other keyword
+    arguments as for `registry.load_from_checkpoint`."""
     import torch
 
     from parseq_tpu_torch.utils.registry import _from_reference
 
-    obj = torch.load(get_pretrained_path(experiment), map_location='cpu', weights_only=True)
+    path = get_pretrained_path(experiment, download_if_missing=download_if_missing)
+    obj = torch.load(path, map_location='cpu', weights_only=True)
     return _from_reference(obj, experiment, **kwargs)

@@ -55,11 +55,18 @@ class ModelBundle:
     def img_size(self):
         return tuple(self.raw_config.get('img_size', (32, 128)))
 
-    def read(self, images):
-        """images (B, H, W, 3) in [-1, 1] -> (labels, confidences)."""
+    def read(self, images, *, gaps=False):
+        """images (B, H, W, 3) in [-1, 1] -> (labels, confidences); with
+        gaps, also each read's smallest top-1 - top-2 probability over the
+        steps that decide it (through EOS; every step of CTC)."""
         probs = torch.softmax(self(images), dim=-1).cpu().numpy()
-        labels, probs = self.tokenizer.decode(probs)
-        return labels, [float(np.prod(p)) for p in probs]
+        labels, step_probs = self.tokenizer.decode(probs)
+        confs = [float(np.prod(p)) for p in step_probs]
+        if not gaps:
+            return labels, confs
+        top2 = np.sort(probs, axis=-1)[..., -2:]
+        margin = top2[..., 1] - top2[..., 0]
+        return labels, confs, [float(m[:len(p)].min()) for m, p in zip(margin, step_probs)]
 
 
 def _family(name: str) -> str:

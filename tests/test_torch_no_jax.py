@@ -30,6 +30,9 @@ READ_MODULES = ('ops.rnn', 'ops.grid_sample', 'models.crnn', 'models.trba', 'tra
                 'cli.test', 'cli.bench', 'utils.flops')
 # Training of every family.
 TRAIN_MODULES = ('ops.ctc', 'train.families', 'train.loop', 'train.optim', 'cli.train')
+# Serving and tuning.
+SERVE_MODULES = ('serve', 'serve.server', 'cli.serve', 'cli.tune', 'data.transforms',
+                 'utils.pretrained')
 
 
 def test_port_imports_without_jax():
@@ -38,8 +41,8 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     walked, shared = out.stdout.split('\n')[:2]
     assert {f'parseq_tpu_torch.ops.{m}' for m in KERNEL_MODULES} <= set(walked.split(','))
-    assert {f'parseq_tpu_torch.{m}' for m in READ_MODULES + TRAIN_MODULES} <= set(
-        walked.split(','))
+    modules = READ_MODULES + TRAIN_MODULES + SERVE_MODULES
+    assert {f'parseq_tpu_torch.{m}' for m in modules} <= set(walked.split(','))
     assert shared == '', f'the port loaded modules of the JAX package: {shared}'
 
 

@@ -1,11 +1,13 @@
 """The port's checkpoint and pretrained-weight loading: reference state_dicts
 saved as `.ckpt` (and Lightning-wrapped) load as `.pt` files do, the
 trainer's own checkpoints keep loading with their stored config, and the
-offline pretrained resolution (utils/pretrained.py) against the JAX
-package's table, with fake weight files under a monkeypatched table and
-cache directory (nothing is downloaded)."""
+pretrained resolution (utils/pretrained.py) against the JAX package's
+table, with fake weight files under a monkeypatched table and cache
+directory. Downloads are served from `file://` URLs; a guard fails any test
+that opens another URL, so no test reaches the network."""
 
 import hashlib
+import urllib.request
 
 import numpy as np
 import pytest
@@ -21,6 +23,20 @@ from parseq_tpu_torch.utils import pretrained, registry
 from parseq_tpu_torch.utils.checkpoint import save_checkpoint
 
 SMALL = dict(embed_dim=48, enc_num_heads=4, enc_depth=2, dec_num_heads=6, max_label_length=10)
+
+
+@pytest.fixture(autouse=True)
+def no_network(monkeypatch):
+    """urllib may open file:// URLs only."""
+    urlopen = urllib.request.urlopen
+
+    def local_only(url, *args, **kwargs):
+        target = url.full_url if isinstance(url, urllib.request.Request) else str(url)
+        if not target.startswith('file:'):
+            raise AssertionError(f'a test tried to open {target}')
+        return urlopen(url, *args, **kwargs)
+
+    monkeypatch.setattr(urllib.request, 'urlopen', local_only)
 
 
 def _images(n=2, seed=0):
@@ -157,8 +173,13 @@ def test_cache_search_order(tmp_path, monkeypatch):
         assert pretrained.get_pretrained_path('fake-model') == d / name
 
 
+def _offline(*args, **kwargs):
+    raise OSError('no network')
+
+
 def test_missing_weights_error_names_file_and_directories(tmp_path, monkeypatch):
     monkeypatch.setenv('PARSEQ_TPU_CACHE', str(tmp_path))
+    monkeypatch.setattr(pretrained, 'download', _offline)  # a host without a network
     with pytest.raises(pretrained.PretrainedWeightsError, match='not found in cache') as e:
         pretrained.get_pretrained_path('parseq')
     assert 'parseq-bb5792a6.pt' in str(e.value)
@@ -204,3 +225,56 @@ def test_read_cli_takes_pretrained_name(tmp_path, monkeypatch, capsys):
     read_cli.main(['pretrained=parseq-tiny', '--images', str(img), '--device', 'cpu'])
     out = capsys.readouterr().out
     assert f'{img}: ' in out and 'conf=' in out
+
+
+# The download (ROADMAP A13), from file:// URLs on a monkeypatched table.
+
+def _served(tmp_path, monkeypatch, payload, experiment, stem, name_payload=None):
+    """`payload` behind a file:// URL in the table under `experiment`, named
+    by the sha256 prefix of `name_payload` (default: of the payload), and an
+    empty cache; returns the cache directory the download lands in."""
+    name = _fake_entry(monkeypatch, payload if name_payload is None else name_payload,
+                       experiment=experiment, stem=stem)
+    src = tmp_path / 'release' / name
+    src.parent.mkdir()
+    src.write_bytes(payload)
+    monkeypatch.setitem(pretrained.WEIGHTS_URL, experiment, src.as_uri())
+    monkeypatch.setenv('PARSEQ_TPU_CACHE', str(tmp_path / 'empty'))
+    monkeypatch.setenv('XDG_CACHE_HOME', str(tmp_path / 'xdg'))
+    return tmp_path / 'xdg' / 'parseq_tpu' / 'checkpoints'
+
+
+def test_download_lands_in_the_cache_and_loads(tmp_path, monkeypatch):
+    tb = registry.create_model('parseq-tiny', seed=5, device='cpu', dtype=torch.float32)
+    with torch.no_grad():
+        want = tb(_images())
+    buf = tmp_path / 'w.pt'
+    torch.save(tb.module.state_dict(), buf)
+    cache = _served(tmp_path, monkeypatch, buf.read_bytes(), 'parseq-tiny', 'parseq_tiny')
+    path = pretrained.get_pretrained_path('parseq-tiny')
+    assert path.parent == cache and path.read_bytes() == buf.read_bytes()
+    assert [p.name for p in cache.iterdir()] == [path.name]  # no .partial left
+    assert pretrained.find_cached('parseq-tiny') == path
+    torch.testing.assert_close(_logits('pretrained=parseq-tiny'), want, rtol=0, atol=0)
+
+
+def test_download_with_a_bad_hash_raises_and_leaves_nothing(tmp_path, monkeypatch):
+    cache = _served(tmp_path, monkeypatch, b'tampered weights', 'fake-model', 'fake_model',
+                    name_payload=b'released weights')
+    with pytest.raises(pretrained.PretrainedWeightsError, match='sha256'):
+        pretrained.get_pretrained_path('fake-model')
+    assert list(cache.iterdir()) == []
+    with pytest.raises(pretrained.PretrainedWeightsError, match='sha256'):
+        pretrained.download('fake-model', dest_dir=tmp_path / 'dest')
+    assert list((tmp_path / 'dest').iterdir()) == []
+
+
+def test_no_download_when_the_flag_is_off(tmp_path, monkeypatch):
+    _served(tmp_path, monkeypatch, b'weights', 'fake-model', 'fake_model')
+    fetched = []
+    monkeypatch.setattr(pretrained, 'download', lambda *a, **k: fetched.append(a))
+    with pytest.raises(pretrained.PretrainedWeightsError, match='not found in cache'):
+        pretrained.get_pretrained_path('fake-model', download_if_missing=False)
+    with pytest.raises(pretrained.PretrainedWeightsError, match='not found in cache'):
+        pretrained.load_pretrained('fake-model', download_if_missing=False, device='cpu')
+    assert fetched == []
