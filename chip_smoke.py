@@ -126,7 +126,32 @@ from a seed), in phases, each printing its result:
      parseq, full width and depth, batch 384, 2 trials of 4 steps, one
      rung) on phase 5's synthetic LMDB, written again: results.json with two
      trials of distinct LR, a finite best LR, B4 launches in the trials'
-     steps and B1 launches in their validations, each trial's wall time.
+     steps and B1 launches in their validations, each trial's wall time;
+ 11. main paths of several ranks and of the model-loading tools: (a) two
+     processes of parseq_tpu_torch.cli.train +experiment=parseq
+     trainer.multihost=true with torchrun's environment on 127.0.0.1 share
+     the card (so the process group is gloo, printed) and train PARSeq-S at
+     the global batch of 384 (192 rows a rank, 8 microbatches of 24, bf16)
+     for 4 steps on a synthetic LMDB, validating at steps 2 and 4: each
+     rank's B4 count (set to 0 in the rank before it trains) reaches 12 x 8
+     x 4 and its B1 count rises in its validations, the parameters after
+     the run hash alike on both ranks, rank 0 alone writes (rank 1 has a
+     --work_dir of its own, which must not exist after), the best
+     checkpoint reloads on cuda and reads 7 images; each rank's step time
+     and peak memory (two ranks on one card: not a scaling figure); (b)
+     one train step of PARSeq-S and of CRNN (dropout 0, a numpy batch of
+     16, 2 microbatches) on 2 ranks sharing the card against 1 rank, in
+     float64 (float64_mode) and f32 with TF32 off, within RANK_LIMITS, which
+     two planted faults (the gradient all-reduce skipped; batch norms on
+     the rank's own rows) must fail; (c) tools.certify_pretrained on phase
+     4's PARSeq-S weights as phase 10 leaves them, saved as a released
+     .pt in a temporary checksum cache, reads six PIL-rendered images named
+     as DEMO_EXPECTED's files on cuda (B1's count risen), exits 1, and each
+     prediction equals bundle.read of the same image; tools.abinet_lm_acc
+     on phase 4's ABINet weights over a synthetic LMDB of 300 words gives
+     the same count on cuda as on the CPU, and the language model's
+     probabilities (tools.abinet_lm_acc.batch_probs) on both within
+     LM_LIMIT of the largest.
 
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the repository beside it, it fails and prints no result. The last lines
@@ -326,6 +351,27 @@ TUNE_TRIALS = 2
 TUNE_STEPS = 4
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, bf16 tensor
 # cores, f32 outside the tensor cores.
+# Phase 11: several ranks. 11a trains PARSeq-S (its experiment: batch 384,
+# 8 microbatches, bf16) on RANKS processes sharing the card for RANK_STEPS
+# steps; 11b holds one step of each RANK_MATH_FAULTS model (dropout 0) on a
+# numpy batch of RANK_MATH_BATCH in RANK_MATH_MICRO microbatches, on RANKS
+# ranks, to the same step on one: |difference| of each gradient relative
+# to its parameter's largest within RANK_LIMITS['grad'], the loss's, the
+# grad norm's and the batch-norm statistics' relative differences within
+# RANK_LIMITS['other'] (float64: float64_mode; f32 with TF32 off), which
+# each planted fault must fail; 11c runs the tools (LM_WORDS words for the
+# language model, whose f32 probabilities on cuda, TF32 off, and on the CPU
+# differ by at most LM_LIMIT of the CPU's largest).
+RANKS = 2
+RANK_STEPS = 4
+RANK_TIMEOUT_S = 480
+RANK_MATH_BATCH = 16
+RANK_MATH_MICRO = 2
+RANK_MATH_FAULTS = {'parseq': ('no_allreduce',), 'crnn': ('no_allreduce', 'local_batchnorm')}
+RANK_LIMITS = {torch.float64: {'grad': 1e-10, 'other': 1e-10},
+               torch.float32: {'grad': 1e-4, 'other': 1e-4}}
+LM_WORDS = 300
+LM_LIMIT = 1e-4
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
@@ -910,6 +956,8 @@ def main():
         print(f'MACs per image {name} (utils/flops.py through the plain paths): '
               f'{per_image_flops(bundle, x) / 1e9:.4f} G')
     serve_bundle = bundles['parseq']  # phase 10 serves these weights
+    abinet_sd = {k: v.detach().cpu().clone()  # phase 11's language-model tool reads these
+                 for k, v in bundles['abinet'].module.state_dict().items()}
     del bundles, cnn_bundles, b1_models, memories, b5_ops
     torch.cuda.empty_cache()
 
@@ -920,11 +968,22 @@ def main():
     phase(f'10 main paths on cuda: serving and tuning PARSeq-S [{card}]')
     t0 = time.perf_counter()
     serve_info = serve_phase(serve_bundle, card)
+    # phase 4's weights as phase 10 leaves them (its reads vary): phase 11's certify reads
+    certify_sd = {k: v.detach().cpu().clone()
+                  for k, v in serve_bundle.module.state_dict().items()}
     del serve_bundle
     tune_info = tune_phase(card)
     main_launches['B1'] += serve_info['b1'] + tune_info['b1']
     main_launches['B4'] += tune_info['b4']
     print(f'phase 10 wall {time.perf_counter() - t0:.1f} s')
+
+    phase(f'11 main paths on cuda: PARSeq-S on two ranks through cli.train, the step on 2 '
+          f'ranks vs 1, the certify and language-model tools [{card}]')
+    t0 = time.perf_counter()
+    rank_info = multirank_phase(card, certify_sd, abinet_sd)
+    main_launches['B1'] += rank_info['b1']
+    main_launches['B4'] += rank_info['b4']
+    print(f'phase 11 wall {time.perf_counter() - t0:.1f} s')
 
     b1_ms, b2_ms, b4_ms = b1_bound(TIMED_BATCH, 128, PARSeqConfig()), b2_bound(
         TIMED_BATCH, 197, 6, 384), b4_bound(*B4_SHAPES[0])
@@ -939,6 +998,7 @@ def main():
          'bound_ms': b1_ms[0], 'bound_us': b1_ms[0] * 1e3, 'bound_by': b1_ms[1],
          'library_ms': None, 'at': f'B={TIMED_BATCH} M=128 (PARSeq-S)',
          'launches_serving': serve_info['b1'], 'launches_tuning_validation': tune_info['b1'],
+         'launches_two_ranks_and_tools': rank_info['b1'],
          'prep_ms': timed['B1', 'PARSeq-S', TIMED_BATCH][2],
          **{f'ms_b{B}': timed['B1', 'PARSeq-S', B][0] for B in B1_TIMED_BATCHES[:-1]}},
         {'name': 'fused_attention_nosplit', 'route': 'cuda',
@@ -954,7 +1014,7 @@ def main():
          'source': 'parseq_tpu_torch/csrc/flash_bwd.cu',
          'replaces': 'parseq_tpu/ops/flash_bwd.py:64',
          'launches': main_launches['B4'], 'max_abs_err': b4_err,
-         'launches_tuning': tune_info['b4'],
+         'launches_tuning': tune_info['b4'], 'launches_two_ranks': rank_info['b4'],
          'ms': timed['B4', 48][0], 'plain_ms': timed['B4', 48][1],
          'bound_ms': b4_ms[0], 'bound_us': b4_ms[0] * 1e3, 'bound_by': b4_ms[1],
          'library_ms': timed['B4', 48][2],
@@ -1936,6 +1996,337 @@ def tune_phase(card):
                       for r in results)
           + f'; B4 launches {b4} (>= {need_b4}), B1 launches {b1}')
     return {'b1': b1, 'b4': b4}
+
+
+def _rank_train(argv):
+    """One rank of phase 11a in a process of its own: cli.train with
+    torchrun's environment, its steps timed; prints RANK_RESULT and a JSON
+    object (launches, step times, peak memory, a checksum of the
+    parameters, the best checkpoint)."""
+    import hashlib
+
+    from parseq_tpu_torch.cli import train as train_cli
+    from parseq_tpu_torch.ops import ar_kernel, flash_bwd
+    from parseq_tpu_torch.train import loop
+
+    times = []
+    make_step = loop.make_train_step
+
+    def timed_make_step(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def timed(state, batch, rng):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(state, batch, rng)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            return metrics
+
+        return timed
+
+    loop.make_train_step = timed_make_step
+    torch.cuda.reset_peak_memory_stats()
+    flash_bwd.launches = ar_kernel.launches = 0
+    state, best = train_cli.main(argv)
+    digest = hashlib.sha256()
+    for p in state['model'].parameters():
+        digest.update(p.detach().float().cpu().numpy().tobytes())
+    print('RANK_RESULT ' + json.dumps({
+        'b4': flash_bwd.launches, 'b1': ar_kernel.launches, 'step_ms': times,
+        'peak_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
+        'checksum': digest.hexdigest(), 'best': str(best) if best else None}), flush=True)
+    return 0
+
+
+def _card_rank_steps(device, jobs):
+    """parallel.dryrun.rank_step of each job (or of the jobs in the file
+    named `jobs`, which this program wrote) on `device` with TF32 off, each
+    float64 job in float64_mode."""
+    from parseq_tpu_torch.parallel import dryrun
+
+    if isinstance(jobs, str):
+        jobs = torch.load(jobs, weights_only=False)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = []
+    for job in jobs:
+        with float64_mode() if job['dtype'] == torch.float64 else contextlib.nullcontext():
+            out.append(dryrun.rank_step(device, **job))
+    return out
+
+
+def multirank_phase(card, certify_sd, abinet_sd):
+    """11a: PARSeq-S trains on two ranks sharing the card through cli.train
+    with torchrun's environment; 11b: one step of PARSeq-S and of CRNN on 2
+    ranks against 1 in float64 and f32, two planted faults failing the
+    limits; 11c: tools.certify_pretrained and tools.abinet_lm_acc on the
+    card. Returns B4's and B1's launches and the numbers measured."""
+    from parseq_tpu_torch.utils.config import compose
+
+    rng = np.random.default_rng(SEED + 11)
+    root = Path(__file__).resolve().parent / 'build'
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix='smoke-ranks-', dir=root))
+    try:
+        write_train_lmdb(tmp / 'data', rng, compose('parseq')['model']['charset_train'])
+        info = ranks_train(card, RANKS, tmp / 'data', tmp / 'train', rng, '11a',
+                           ', two ranks on one card: not a scaling figure')
+        info['math'] = ranks_math(RANKS, tmp / 'math', rng, '11b')
+        info['b1'] += tools_on_card(certify_sd, abinet_sd, tmp / 'tools', rng)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return info
+
+
+def ranks_train(card, ranks, data, tmp, rng, label, note=''):
+    """PARSeq-S (+experiment=parseq) trains through cli.train for RANK_STEPS
+    steps on `ranks` processes with torchrun's environment (a card a rank
+    when there are as many, else all on cuda:0 over gloo) on the LMDB at
+    `data`; checks the launches, the parameters, who wrote and a read of the
+    best checkpoint. Returns the launches, step times and peak memory."""
+    import os
+    import subprocess
+
+    from parseq_tpu_torch.parallel import dist
+    from parseq_tpu_torch.utils.config import compose
+    from parseq_tpu_torch.utils.registry import load_from_checkpoint
+
+    config = compose('parseq')
+    mcfg, tcfg = config['model'], config['trainer']
+    depth, mb, charset = mcfg['enc_depth'], tcfg['microbatches'], mcfg['charset_train']
+    tmp.mkdir(parents=True)
+    t0 = time.perf_counter()
+    env = dict(os.environ, MASTER_ADDR='127.0.0.1', MASTER_PORT=str(dist.free_port()),
+               WORLD_SIZE=str(ranks), LOCAL_WORLD_SIZE=str(ranks))
+    logs, procs = [], []
+    for r in range(ranks):
+        args = ['+experiment=parseq', f'data.root_dir={data}',
+                f'trainer.max_steps={RANK_STEPS}',
+                f'trainer.val_check_interval={RANK_STEPS // 2}', 'trainer.multihost=true',
+                f'--work_dir={tmp / f"run{r}"}', f'--seed={SEED}', '--device', 'cuda']
+        logs.append(open(tmp / f'rank{r}.log', 'w+'))
+        procs.append(subprocess.Popen(
+            [sys.executable, '-c',
+             'import sys, chip_smoke; sys.exit(chip_smoke._rank_train(sys.argv[1:]))', *args],
+            cwd=Path(__file__).resolve().parent, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+            stdout=logs[-1], stderr=subprocess.STDOUT))
+    try:
+        codes = [p.wait(timeout=RANK_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    outs = []
+    for log in logs:
+        log.seek(0)
+        outs.append(log.read())
+        log.close()
+    for r, (code, out) in enumerate(zip(codes, outs)):
+        if code != 0 or 'RANK_RESULT ' not in out:
+            raise AssertionError(f'rank {r} of cli.train exited {code}:\n{out[-4000:]}')
+    results = [json.loads(out.split('RANK_RESULT ', 1)[1].splitlines()[0]) for out in outs]
+    backends = [line.split('backend ', 1)[1] for out in outs for line in out.splitlines()
+                if 'backend ' in line and f'of {ranks}:' in line]
+    want = 'gloo' if ranks > torch.cuda.device_count() else 'nccl'  # NCCL: a card a rank
+    print(f'{label}: {ranks} ranks of cli.train on {torch.cuda.device_count()} cards, process '
+          f'group: {backends}')
+    if len(backends) != ranks or not all(b.startswith(want) for b in backends):
+        raise AssertionError(f'{ranks} ranks on {torch.cuda.device_count()} cards need {want}: '
+                             f'{backends}')
+    need = depth * mb * RANK_STEPS
+    for r, res in enumerate(results):
+        if res['b4'] < need or res['b1'] < 1:
+            raise AssertionError(f'rank {r}: B4 launches {res["b4"]} (>= {need}), B1 '
+                                 f'{res["b1"]} in its validations (>= 1)')
+    if len({res['checksum'] for res in results}) != 1:
+        raise AssertionError(f'parameters differ between the ranks after training: '
+                             f'{[res["checksum"] for res in results]}')
+    run = tmp / 'run0'
+    for r in range(1, ranks):
+        if (tmp / f'run{r}').exists():
+            raise AssertionError(f'rank {r} wrote {sorted((tmp / f"run{r}").rglob("*"))}')
+    wrote = sorted(p.name for p in run.iterdir())
+    ckpts = sorted(p.name for p in (run / 'checkpoints').iterdir())
+    if not ({'config.json', 'metrics.jsonl', 'tb', 'checkpoints'} <= set(wrote)
+            and {'last.ckpt', 'train_state.ckpt'} <= set(ckpts)):
+        raise AssertionError(f'rank 0 wrote {wrote}, checkpoints {ckpts}')
+    metrics = [json.loads(line) for line in open(run / 'metrics.jsonl')]
+    losses = [(m['step'], m['loss'], m['grad_norm']) for m in metrics if 'loss' in m]
+    vals = [(m['step'], round(m['val_loss'], 4), m['val_accuracy'])
+            for m in metrics if 'val_accuracy' in m]
+    if ([v[0] for v in vals] != [RANK_STEPS // 2, RANK_STEPS]
+            or not all(np.isfinite(x) for _, l, g in losses for x in (l, g))):
+        raise AssertionError(f'metrics of the {ranks}-rank run: {losses} {vals}')
+    best = Path(results[0]['best'])
+    bundle = load_from_checkpoint(str(best), device='cuda')
+    labels, confs = bundle.read(rng.uniform(-1, 1, (7, 32, 128, 3)).astype(np.float32))
+    if not (len(labels) == 7 and all(set(t) <= set(charset) for t in labels)
+            and all(0.0 <= c <= 1.0 for c in confs)):
+        raise AssertionError(f'read from the {ranks}-rank checkpoint: {labels} {confs}')
+    del bundle
+    info = {'b4': sum(res['b4'] for res in results), 'b1': sum(res['b1'] for res in results),
+            'ranks': [{k: res[k] for k in ('b4', 'b1', 'peak_gib')} for res in results],
+            'rank_step_ms': [statistics.median(res['step_ms'][1:]) for res in results],
+            'wall_s': wall}
+    print(f'{label}: {RANK_STEPS} steps at the global batch {mcfg["batch_size"]} '
+          f'({mcfg["batch_size"] // ranks} rows a rank, {mb} microbatches), bf16, '
+          f'{wall:.1f} s wall incl. process start, data and 2 validations; launches '
+          f'B4 {[res["b4"] for res in results]} (>= {need} each), B1 '
+          f'{[res["b1"] for res in results]}; parameters equal on every rank (sha256 '
+          f'{results[0]["checksum"][:16]}); loss/grad_norm {losses}; validation {vals}; '
+          f'rank 0 wrote {wrote}, checkpoints {ckpts}; no other rank wrote; reloaded '
+          f'{best.name} on cuda: read 7 images -> {labels[:2]} ...')
+    print(f'{label} [{card}]{note}: step ms a rank '
+          + '; '.join(f'rank {r}: median {statistics.median(res["step_ms"][1:]):.2f} of '
+                      f'{[round(t, 2) for t in res["step_ms"]]}, peak '
+                      f'{res["peak_gib"]:.2f} GiB' for r, res in enumerate(results)))
+    return info
+
+
+def ranks_math(ranks, tmp, rng, tag):
+    """One step of each RANK_MATH_FAULTS model (dropout 0, a numpy batch of
+    RANK_MATH_BATCH, RANK_MATH_MICRO microbatches) on `ranks` ranks against
+    the same step on one, in float64 and f32, each planted fault failing
+    RANK_LIMITS. Returns the distances."""
+    from parseq_tpu_torch.parallel import dryrun
+    from parseq_tpu_torch.train.families import get_family
+    from parseq_tpu_torch.utils.config import compose
+    from parseq_tpu_torch.utils.registry import build_model
+
+    charset = compose('parseq')['model']['charset_train']
+    tmp.mkdir(parents=True)
+    t0 = time.perf_counter()
+    jobs = []
+    for name, faults in RANK_MATH_FAULTS.items():
+        mc = compose(name)['model']
+        if 'dropout' in mc:
+            mc['dropout'] = 0.0
+        bundle = build_model(mc['name'], mc, seed=SEED, dtype=torch.float32, device='cpu')
+        h, w = bundle.img_size
+        words = [''.join(rng.choice(np.array(list(charset[:62])), rng.integers(3, 11)))
+                 for _ in range(RANK_MATH_BATCH)]
+        images = rng.integers(0, 256, (RANK_MATH_BATCH, h, w, 3)) / 255.0
+        prepared = get_family(mc['name']).prepare(bundle.tokenizer, words, bundle.cfg,
+                                                  np.random.default_rng(SEED))
+        for dtype in RANK_LIMITS:
+            batch = {'images': ((images - 0.5) / 0.5).astype(
+                np.float32 if dtype == torch.float32 else np.float64), **prepared}
+            for fault in (None, *faults):
+                jobs.append(dict(family=mc['name'], model=bundle.module, batch=batch,
+                                 microbatches=RANK_MATH_MICRO, dtype=dtype, fault=fault))
+        del bundle
+    torch.save(jobs, tmp / 'jobs.pt')  # read by each rank: no model in shared memory
+    many = dryrun.run_ranks(ranks, _card_rank_steps, (str(tmp / 'jobs.pt'),), 'cuda')
+    clean = [job for job in jobs if job['fault'] is None]
+    one = dict(zip([(j['family'], j['dtype']) for j in clean],
+                   _card_rank_steps(torch.device('cuda'), clean)))
+    info = {}
+    for i, job in enumerate(jobs):
+        key = (job['family'], job['dtype'])
+        d = dryrun.compare_steps(many[0][i], one[key])
+        limits = RANK_LIMITS[job['dtype']]
+        ok = (d['grad'][0] <= limits['grad'] and max(d['loss'], d['grad_norm'], d['stats'])
+              <= limits['other'])
+        same = all(torch.equal(g, other[i]['grads'][n]) for other in many[1:]
+                   for n, g in many[0][i]['grads'].items())
+        label = f'{job["family"]} {str(job["dtype"])[6:]} {job["fault"] or "clean"}'
+        info[label] = {'grad': d['grad'][0], 'loss': d['loss'], 'grad_norm': d['grad_norm'],
+                       'stats': d['stats']}
+        print(f'{tag} {label}: {ranks} ranks vs 1: loss {d["loss"]:.3e}, grad_norm '
+              f'{d["grad_norm"]:.3e}, worst gradient {d["grad"][0]:.3e} of its largest '
+              f'({d["grad"][1]}), statistics {d["stats"]:.3e}; limits {limits}; ranks '
+              f'bit-equal {same}')
+        if ok != (job['fault'] is None) or (job['fault'] is None and not same):
+            raise AssertionError(f'{tag} {label}: within the limits {ok}, ranks equal {same}')
+    print(f'{tag}: {len(jobs)} steps on {ranks} ranks and {len(clean)} on 1 in '
+          f'{time.perf_counter() - t0:.1f} s')
+    return info
+
+
+def tools_on_card(certify_sd, abinet_sd, tmp, rng):
+    """tools.certify_pretrained on the PARSeq-S state_dict `certify_sd`, a
+    released .pt in a temporary checksum cache, and tools.abinet_lm_acc on
+    `abinet_sd`, both on cuda. Returns B1's launches in certify's reads."""
+    import hashlib
+    import os
+
+    from parseq_tpu_torch.data.transforms import batch_images
+    from parseq_tpu_torch.ops import ar_kernel
+    from parseq_tpu_torch.tools import abinet_lm_acc, certify_pretrained
+    from parseq_tpu_torch.utils import pretrained
+    from parseq_tpu_torch.utils.registry import load_from_checkpoint
+
+    tmp.mkdir(parents=True)
+    t0 = time.perf_counter()
+    raw = tmp / 'raw.pt'
+    torch.save(certify_sd, raw)
+    cache = tmp / 'cache'
+    cache.mkdir()
+    cached = cache / f'parseq-{hashlib.sha256(raw.read_bytes()).hexdigest()[:8]}.pt'
+    raw.rename(cached)
+    demo = tmp / 'demo'
+    demo.mkdir()
+    for name, text in certify_pretrained.DEMO_EXPECTED.items():
+        with open(demo / name, 'wb') as f:
+            f.write(render_word(text.lower()))
+    url, cache_env = pretrained.WEIGHTS_URL['parseq'], os.environ.get('PARSEQ_TPU_CACHE')
+    pretrained.WEIGHTS_URL['parseq'] = cached.as_uri()  # found in the cache; never fetched
+    os.environ['PARSEQ_TPU_CACHE'] = str(cache)
+    try:
+        ar_kernel.launches = 0
+        rc = certify_pretrained.main(['parseq', '--demo_dir', str(demo),
+                                      '--out', str(tmp / 'certify.json'), '--device', 'cuda'])
+        certify_b1 = ar_kernel.launches
+    finally:
+        pretrained.WEIGHTS_URL['parseq'] = url
+        if cache_env is None:
+            os.environ.pop('PARSEQ_TPU_CACHE')
+        else:
+            os.environ['PARSEQ_TPU_CACHE'] = cache_env
+    verdict = json.loads((tmp / 'certify.json').read_text())
+    paths = sorted(demo.iterdir())
+    bundle = load_from_checkpoint(str(cached), dtype=torch.float32, device='cuda')
+    want, want_conf = bundle.read(batch_images([str(p) for p in paths], bundle.img_size))
+    got = [verdict['demo'][p.name]['pred'] for p in paths]
+    got_conf = [verdict['demo'][p.name]['conf'] for p in paths]
+    if not (rc == 1 and len(verdict['demo']) == 6 and got == want and certify_b1 >= 1
+            and np.allclose(got_conf, want_conf, atol=1e-4)):
+        raise AssertionError(f'certify_pretrained: rc {rc}, predictions {got} '
+                             f'(bundle.read {want}), B1 launches {certify_b1}')
+    print(f'11c certify_pretrained on cuda: exit {rc}, 6 predictions equal to bundle.read '
+          f'({got[:2]} ...), B1 launches {certify_b1}')
+    del bundle
+    torch.save(abinet_sd, tmp / 'abinet-smoke.pt')
+    letters = np.array(list(string.ascii_lowercase))
+    lm_words = [''.join(rng.choice(letters, rng.integers(3, 11))) for _ in range(LM_WORDS)]
+    write_lmdb(tmp / 'lm' / 'test' / 'IIIT5k', lm_words)
+    lm = {}
+    for device in ('cuda', 'cpu'):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            lm[device] = abinet_lm_acc.main([str(tmp / 'abinet-smoke.pt'), '--data_root',
+                                             str(tmp / 'lm'), '--splits', 'test/IIIT5k',
+                                             '--device', device])
+        lm[device] = (*lm[device], buf.getvalue().strip().splitlines()[-1])
+    # what the count sums, compared: the language model's probabilities
+    # on both devices (random weights read few words right)
+    probs = [np.concatenate([pr for _, pr in abinet_lm_acc.batch_probs(load_from_checkpoint(
+        str(tmp / 'abinet-smoke.pt'), dtype=torch.float32, device=device), lm_words)])
+        for device in ('cuda', 'cpu')]
+    lm_err = float(np.abs(probs[0] - probs[1]).max() / probs[1].max())
+    if lm['cuda'][:2] != lm['cpu'][:2] or lm['cuda'][1] != LM_WORDS or lm_err > LM_LIMIT:
+        raise AssertionError(f'abinet_lm_acc: cuda {lm["cuda"]}, cpu {lm["cpu"]}; the '
+                             f'language model\'s probabilities {lm_err:.3e} of the largest '
+                             f'apart (limit {LM_LIMIT})')
+    print(f'11c abinet_lm_acc on {LM_WORDS} words: cuda "{lm["cuda"][2]}", cpu '
+          f'"{lm["cpu"][2]}"; the language model\'s probabilities on cuda and on the CPU '
+          f'{lm_err:.3e} of the largest ({float(probs[1].max()):.4f}) apart at most (limit '
+          f'{LM_LIMIT}); '
+          f'{time.perf_counter() - t0:.1f} s')
+    return certify_b1
 
 
 if __name__ == '__main__':

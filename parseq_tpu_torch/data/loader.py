@@ -10,6 +10,7 @@ zero-padded and carries a validity mask.
 from __future__ import annotations
 
 import queue
+import random
 import threading
 
 import numpy as np
@@ -34,22 +35,23 @@ def _collate(items, batch_size):
 class DataLoader:
     """Iterates (images (B,H,W,3) f32, labels list[str], valid (B,) bool).
 
-    Multi-host SPMD (`shard_rank`/`shard_count`): `batch_size` is the GLOBAL
-    batch; every process derives the identical global shuffle from
-    (seed, epoch) and yields only its contiguous 1/shard_count slice of each
-    global batch (size batch_size // shard_count), matching DDP's
-    DistributedSampler semantics (reference train.py:65-71). The training
-    loop reassembles the global array with
-    jax.make_array_from_process_local_data.
+    Several ranks (`shard_rank`/`shard_count`): `batch_size` is the GLOBAL
+    batch; every rank derives the identical global shuffle from (seed,
+    epoch) and yields only its rows of each global batch (batch_size //
+    shard_count of them, shard_positions): for each of the step's
+    `microbatches` equal slices of the global batch, the rank's
+    1/shard_count part of it, so that a rank's microbatch k is its share of
+    the global microbatch k that the one-rank step computes. A shuffled
+    loader's sample draws its augmentation from (seed, epoch, index), so it
+    does not depend on which rank or worker loads it.
     """
 
     def __init__(self, dataset, batch_size, shuffle=False, drop_last=False,
                  num_workers=0, seed=0, prefetch=4, epoch=0,
-                 shard_rank=0, shard_count=1):
-        assert batch_size % shard_count == 0, (
-            f'global batch {batch_size} not divisible by {shard_count} hosts')
-        assert shard_count == 1 or drop_last, (
-            'sharded loading requires drop_last (hosts must agree on batch count)')
+                 shard_rank=0, shard_count=1, microbatches=1):
+        if shard_count > 1 and not drop_last:
+            raise ValueError('sharded loading requires drop_last (ranks must agree on the '
+                             'batch count)')
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -60,7 +62,8 @@ class DataLoader:
         self.epoch = epoch
         self.shard_rank = shard_rank
         self.shard_count = shard_count
-        self.local_batch_size = batch_size // shard_count
+        self.positions = shard_positions(batch_size, microbatches, shard_rank, shard_count)
+        self.local_batch_size = len(self.positions)
         self._pool = None
 
     def set_epoch(self, epoch):
@@ -75,17 +78,18 @@ class DataLoader:
         if self.shuffle:
             rng = np.random.default_rng((self.seed, self.epoch))
             rng.shuffle(idx)
-        lb = self.local_batch_size
         for i in range(0, len(idx), self.batch_size):
             chunk = idx[i : i + self.batch_size]
             if self.drop_last and len(chunk) < self.batch_size:
                 return
-            # this host's contiguous slice of the global batch
-            yield chunk[self.shard_rank * lb : (self.shard_rank + 1) * lb]
+            yield chunk[self.positions] if self.shard_count > 1 else chunk
+
+    def _sample_seeds(self):
+        return (self.seed, self.epoch) if self.shuffle else None
 
     def _fetch(self, chunk):
-        items = [self.dataset[int(i)] for i in chunk]
-        return _collate(items, self.local_batch_size)
+        return _fetch_items(self.dataset, list(map(int, chunk)), self.local_batch_size,
+                            self._sample_seeds())
 
     def __iter__(self):
         if self.num_workers <= 0:
@@ -98,16 +102,11 @@ class DataLoader:
         import multiprocessing as mp
 
         ctx = mp.get_context('fork')
-        # Per-worker, per-epoch RNG seeding (torch DataLoader seeds each
-        # worker per-iterator as base_seed + worker_id): forked workers would
-        # otherwise inherit identical global random/np.random state, so every
-        # worker — and every epoch, since the parent RNG never advances —
-        # would replay the same RandAugment stream.
-        worker_counter = ctx.Value('i', 0)
+        seeds = self._sample_seeds()
         with ctx.Pool(self.num_workers, initializer=_init_worker,
-                      initargs=(self.dataset, worker_counter, self.seed, self.epoch)) as pool:
-            it = pool.imap(_worker_fetch, ((list(map(int, c)), self.local_batch_size) for c in self._index_batches()),
-                           chunksize=1)
+                      initargs=(self.dataset,)) as pool:
+            it = pool.imap(_worker_fetch, ((list(map(int, c)), self.local_batch_size, seeds)
+                                           for c in self._index_batches()), chunksize=1)
             # thread-side prefetch so the pool stays busy while the device runs
             q = queue.Queue(maxsize=self.prefetch)
             sentinel = object()
@@ -132,21 +131,39 @@ class DataLoader:
 _WORKER_DATASET = None
 
 
-def _init_worker(dataset, worker_counter=None, seed=0, epoch=0):
+def _init_worker(dataset):
     global _WORKER_DATASET
     _WORKER_DATASET = dataset
-    if worker_counter is not None:
-        import random
-
-        with worker_counter.get_lock():
-            worker_id = worker_counter.value
-            worker_counter.value += 1
-        ss = np.random.SeedSequence([seed, epoch, worker_id])
-        np.random.seed(ss.generate_state(1)[0])
-        random.seed(int(ss.generate_state(2)[1]))
 
 
 def _worker_fetch(args):
-    chunk, batch_size = args
-    items = [_WORKER_DATASET[i] for i in chunk]
+    return _fetch_items(_WORKER_DATASET, *args)
+
+
+def _fetch_items(dataset, chunk, batch_size, seeds):
+    """Load and collate dataset[i] for i in `chunk`; with `seeds` (seed,
+    epoch), `random` and `np.random` (which the augmentation draws from)
+    are seeded from (seed, epoch, i) before each sample."""
+    items = []
+    for i in chunk:
+        if seeds is not None:
+            np_seed, py_seed = np.random.SeedSequence([*seeds, i]).generate_state(2)
+            np.random.seed(np_seed)
+            random.seed(int(py_seed))
+        items.append(dataset[i])
     return _collate(items, batch_size)
+
+
+def shard_positions(batch_size, microbatches, rank, count):
+    """Positions in a global batch of `batch_size` rows that rank `rank` of
+    `count` holds: for each of the `microbatches` equal slices, in order,
+    the rank's `rank`-th 1/count part of it. One rank holds all of them."""
+    if count == 1:
+        return np.arange(batch_size)
+    if batch_size % microbatches or (batch_size // microbatches) % count:
+        raise ValueError(f'a global batch of {batch_size} in {microbatches} microbatches does '
+                         f'not split over {count} ranks: each microbatch must hold a multiple '
+                         f'of {count} rows')
+    mb, part = batch_size // microbatches, batch_size // microbatches // count
+    return np.concatenate([np.arange(k * mb + rank * part, k * mb + (rank + 1) * part)
+                           for k in range(microbatches)])

@@ -106,12 +106,14 @@ class SceneTextDataModule:
             )
         return self._val_dataset
 
-    def train_dataloader(self, seed=0, shard_rank=0, shard_count=1):
-        """batch_size is the GLOBAL batch; under multi-host SPMD each process
-        passes its (rank, count) and receives its 1/count slice per batch."""
+    def train_dataloader(self, seed=0, shard_rank=0, shard_count=1, microbatches=1):
+        """batch_size is the GLOBAL batch; on several ranks each passes its
+        (rank, count) and the step's microbatch count, and receives its
+        share of each global microbatch (loader.shard_positions)."""
         return DataLoader(self.train_dataset, self.batch_size, shuffle=True,
                           drop_last=True, num_workers=self.num_workers, seed=seed,
-                          shard_rank=shard_rank, shard_count=shard_count)
+                          shard_rank=shard_rank, shard_count=shard_count,
+                          microbatches=microbatches)
 
     def val_dataloader(self):
         return DataLoader(self.val_dataset, self.batch_size, num_workers=self.num_workers)

@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from parseq_tpu_torch.parallel import dist
+
 
 def conv2d(x, conv: nn.Conv2d):
     """x (B, C, H, W) -> conv(x) in x's dtype; bias added after the cast."""
@@ -38,20 +40,44 @@ def batchnorm(x, bn: nn.BatchNorm2d, momentum=0.1):
     Eval mode (`bn.training` unset) uses the running statistics. Train mode
     uses the batch's mean and biased variance and moves the running ones in
     place, torch's momentum convention with the unbiased variance:
-    running = (1 - momentum) * running + momentum * batch."""
+    running = (1 - momentum) * running + momentum * batch. On several ranks
+    the batch is the global one, as the JAX package's SPMD step sees it
+    (_global_moments), so the statistics and the running ones are equal on
+    every rank."""
     if bn.training:
         x32 = x.float()
-        var, mean = torch.var_mean(x32, dim=(0, 2, 3), correction=0)
-        n = x.numel() / mean.numel()
+        if dist.world_size() > 1:
+            mean, var, n = _global_moments(x32)
+            unbiased = n / (n - 1).clamp(min=1)
+        else:
+            var, mean = torch.var_mean(x32, dim=(0, 2, 3), correction=0)
+            n = x.numel() / mean.numel()
+            unbiased = n / max(n - 1, 1)
         with torch.no_grad():
             bn.running_mean.mul_(1 - momentum).add_(momentum * mean)
-            bn.running_var.mul_(1 - momentum).add_(momentum * var * (n / max(n - 1, 1)))
+            bn.running_var.mul_(1 - momentum).add_(momentum * var * unbiased)
             bn.num_batches_tracked.add_(1)
     else:
         mean, var = bn.running_mean.float(), bn.running_var.float()
     inv = torch.rsqrt(var + bn.eps) * bn.weight.float()
     y = (x.float() - mean[:, None, None]) * inv[:, None, None]
     return (y + bn.bias.float()[:, None, None]).to(x.dtype)
+
+
+def _global_moments(x32):
+    """(mean, biased variance, count) per channel of (B, C, H, W) over every
+    rank's rows, through one all-reduce (and one in the backward) of each
+    rank's (n * mean, n * (var + mean^2), n). Those sums are taken in
+    float64, so that the variance's difference of squares keeps x32's
+    precision; the count is a 0-dim float64 tensor."""
+    var, mean = torch.var_mean(x32, dim=(0, 2, 3), correction=0)
+    mean64, n = mean.double(), x32.numel() / mean.numel()
+    local = torch.cat([mean64, var.double() + mean64 * mean64, mean64.new_ones(1)]) * n
+    sums = dist.sum_over_ranks(local)
+    C, count = mean.numel(), sums[-1]
+    g_mean = sums[:C] / count
+    g_var = sums[C:2 * C] / count - g_mean * g_mean
+    return g_mean.to(x32.dtype), g_var.to(x32.dtype), count
 
 
 def conv_bn(x, conv: nn.Conv2d, bn: nn.BatchNorm2d):

@@ -3,6 +3,9 @@
 Each family supplies
   prepare(tokenizer, labels, cfg, rng) -> dict of host numpy arrays
   loss(model, cfg, batch, rng, dtype, **static) -> (loss, loss_numel)
+  count(cfg, batch) -> the loss_numel that loss will return, from the
+    targets alone (0-dim int64): what the loss's mean divides by, which
+    on several ranks train/steps.py sums over them before the forward
   val: 'ce' | 'ctc', the validation loss of the train loop.
 The model is in train mode: batch norms use batch statistics and move their
 running statistics in place (the JAX package threads them as `stats`).
@@ -32,6 +35,15 @@ def _parseq_loss(model, cfg, batch, rng, dtype):
                                  rng=rng)
 
 
+def _parseq_count(cfg, batch):
+    """multi_perm_loss's tokens: non-PAD targets in every permutation, EOS
+    only in the first two."""
+    tgt_out, K = batch['tgt'][:, 1:], batch['perms'].shape[0]
+    chars = (tgt_out != cfg.pad_id) & (tgt_out != cfg.eos_id)
+    eos = tgt_out == cfg.eos_id
+    return K * chars.sum() + min(K, 2) * eos.sum()
+
+
 # --- ViTSTR -------------------------------------------------------------------
 
 
@@ -42,6 +54,10 @@ def _vitstr_prepare(tok, labels, cfg, rng):
 def _vitstr_loss(model, cfg, batch, rng, dtype):
     _, loss, numel = model.logits_loss(batch['images'], batch['tgt'], dtype=dtype)
     return loss, numel
+
+
+def _vitstr_count(cfg, batch):
+    return (batch['tgt'][:, 1:cfg.num_steps + 1] != cfg.pad_id).sum()
 
 
 # --- CRNN / TRBC (CTC) --------------------------------------------------------
@@ -56,6 +72,12 @@ def _crnn_loss(model, cfg, batch, rng, dtype):
     _, loss, n = model.logits_loss(batch['images'], batch['targets'], batch['lengths'],
                                    dtype=dtype)
     return loss, n
+
+
+def _ctc_count(cfg, batch):
+    """CTC's loss is a batch mean: it divides by the rows."""
+    images = batch['images']
+    return torch.full((), images.shape[0], dtype=torch.long, device=images.device)
 
 
 def _trbc_loss(model, cfg, batch, rng, dtype):
@@ -79,6 +101,10 @@ def _trba_loss(model, cfg, batch, rng, dtype):
                          cfg.num_tokens)
 
 
+def _trba_count(cfg, batch):
+    return (batch['targets'][:, :cfg.num_steps] != cfg.pad_id).sum()
+
+
 # --- ABINet (staged) ----------------------------------------------------------
 
 
@@ -88,6 +114,11 @@ def _abinet_prepare(tok, labels, cfg, rng):
     inputs = np.where(targets == cfg.pad_id, cfg.null_label, targets)
     lengths = np.asarray([len(label) + 1 for label in labels], np.int32)
     return {'targets': targets, 'lm_inputs': inputs, 'lengths': lengths}
+
+
+def _abinet_count(cfg, batch):
+    """Every one of ABINet's losses is a token mean over the same targets."""
+    return (batch['targets'] != cfg.pad_id).sum()
 
 
 def _abinet_res_loss(res_list, targets, cfg):
@@ -134,19 +165,20 @@ def _abinet_loss(model, cfg, batch, rng, dtype, *, pretraining=False, lm_only=Fa
 
 
 class TrainFamily:
-    def __init__(self, prepare, loss, val='ce'):
+    def __init__(self, prepare, loss, count, val='ce'):
         self.prepare = prepare
         self.loss = loss
+        self.count = count
         self.val = val  # 'ce' | 'ctc'
 
 
 FAMILIES = {
-    'parseq': TrainFamily(_parseq_prepare, _parseq_loss),
-    'vitstr': TrainFamily(_vitstr_prepare, _vitstr_loss),
-    'crnn': TrainFamily(_ctc_prepare, _crnn_loss, val='ctc'),
-    'trba': TrainFamily(_trba_prepare, _trba_loss),
-    'trbc': TrainFamily(_ctc_prepare, _trbc_loss, val='ctc'),
-    'abinet': TrainFamily(_abinet_prepare, _abinet_loss),
+    'parseq': TrainFamily(_parseq_prepare, _parseq_loss, _parseq_count),
+    'vitstr': TrainFamily(_vitstr_prepare, _vitstr_loss, _vitstr_count),
+    'crnn': TrainFamily(_ctc_prepare, _crnn_loss, _ctc_count, val='ctc'),
+    'trba': TrainFamily(_trba_prepare, _trba_loss, _trba_count),
+    'trbc': TrainFamily(_ctc_prepare, _trbc_loss, _ctc_count, val='ctc'),
+    'abinet': TrainFamily(_abinet_prepare, _abinet_loss, _abinet_count),
 }
 
 

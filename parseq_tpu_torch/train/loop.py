@@ -1,8 +1,8 @@
 """Training loop: OneCycle + SWA, validation, top-k checkpoints, resume (port of
 parseq_tpu/train/loop.py:train), for every model family.
 
-One device, eager PyTorch: each loader batch moves to the device as uint8
-and is normalized there; the train step (train/steps.py) splits it into
+Eager PyTorch: each loader batch moves to the device as uint8 and is
+normalized there; the train step (train/steps.py) splits it into
 `trainer.microbatches` equal slices and applies one AdamW update. Every
 `val_check_interval` steps the loop validates (accuracy, NED, confidence,
 and the family's loss over the val tree: token CE, or per-sample CTC over
@@ -16,8 +16,15 @@ on its own LR, then jointly after one redraw of the alignment weights; or
 its language model alone with `model.lm_only`. At the end `swa.ckpt`
 holds the SWA average with batch-norm statistics re-estimated for it.
 
-Not ported yet (ROADMAP.md): several devices (queue A item 10) and
-compiled-step reuse across calls.
+Several devices (parseq_tpu/train/loop.py's mesh): the loop runs on every
+rank of a process group (parallel/dist.py; cli/train.py starts the ranks
+for trainer.devices, or joins torchrun's under trainer.multihost). The
+ranks start from rank 0's state, each loads its share of every global
+microbatch, and the step reduces over them, so the math is the one-rank
+step's; the LR scales by sqrt(ranks) as the JAX package's by its devices.
+Every rank validates the full val set (the same results), rank 0's
+val_callback decision holds for all, dropout masks fold in the rank, and
+only rank 0 writes (config.json, metrics.jsonl, tb/, checkpoints).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 from parseq_tpu_torch.data.module import SceneTextDataModule
 from parseq_tpu_torch.ops.ctc import ctc_loss
 from parseq_tpu_torch.ops.layers import ce_ignore_pad
+from parseq_tpu_torch.parallel import dist
 from parseq_tpu_torch.train import optim
 from parseq_tpu_torch.train.evaluate import BatchResult, score_decoded, summarize
 from parseq_tpu_torch.train.families import get_family
@@ -65,9 +73,11 @@ class JsonlLogger:
 
 
 def _dropout_generator(device, seed, step):
-    """Dropout bits of one step come from a generator seeded by (seed, step),
-    so a resumed run draws what the uninterrupted run would have."""
-    return torch.Generator(device=device).manual_seed(seed * (1 << 32) + step)
+    """Dropout bits of one step come from a generator seeded by (seed, step,
+    rank), so a resumed run draws what the uninterrupted run would have and
+    no two ranks share masks."""
+    key = np.random.SeedSequence([seed, step, dist.rank()]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(key))
 
 
 def train(config: dict, work_dir, *, compute_dtype=torch.bfloat16, max_steps: int | None = None,
@@ -79,8 +89,10 @@ def train(config: dict, work_dir, *, compute_dtype=torch.bfloat16, max_steps: in
     stops training. Returns (state, best checkpoint path)."""
     device = torch.device(device)
     work_dir = Path(work_dir)
-    work_dir.mkdir(parents=True, exist_ok=True)
-    (work_dir / 'config.json').write_text(json.dumps(config, indent=2, default=str))
+    is_main, n_ranks = dist.is_main(), dist.world_size()
+    if is_main:
+        work_dir.mkdir(parents=True, exist_ok=True)
+        (work_dir / 'config.json').write_text(json.dumps(config, indent=2, default=str))
     mcfg, dcfg, tcfg = config['model'], config['data'], config['trainer']
     name = mcfg.get('name', 'parseq')
 
@@ -92,9 +104,10 @@ def train(config: dict, work_dir, *, compute_dtype=torch.bfloat16, max_steps: in
     if unknown:
         raise ValueError(f'unknown trainer config key(s): {sorted(unknown)}; '
                          f'accepted: {sorted(_KNOWN_TRAINER)}')
-    if tcfg.get('devices', 1) != 1 or tcfg.get('multihost'):
-        raise NotImplementedError('training on several devices is not ported to PyTorch yet '
-                                  '(ROADMAP.md queue A item 10); set trainer.devices=1')
+    if n_ranks == 1 and tcfg.get('devices', 1) > 1:
+        raise ValueError(f'trainer.devices={tcfg["devices"]} asks for {tcfg["devices"]} ranks, '
+                         'but this process is in no process group: start the ranks through '
+                         'parseq_tpu_torch.cli.train (or torchrun ... trainer.multihost=true)')
     family = get_family(name)
 
     bundle = build_model(name, mcfg, seed=seed, dtype=compute_dtype, device=device)
@@ -106,6 +119,7 @@ def train(config: dict, work_dir, *, compute_dtype=torch.bfloat16, max_steps: in
                                    **{k: v for k, v in mcfg.items() if k != 'name'})
         model.load_state_dict(pre.module.state_dict())
         log.info(f'loaded pretrained weights from {config["pretrained"]}')
+    dist.broadcast_module(model)
     model.train()
 
     dm = SceneTextDataModule(
@@ -119,7 +133,9 @@ def train(config: dict, work_dir, *, compute_dtype=torch.bfloat16, max_steps: in
         dcfg.get('remove_whitespace', True), dcfg.get('normalize_unicode', True),
         min_image_dim=dcfg.get('min_image_dim', 0), rotation=dcfg.get('rotation', 0),
     )
-    train_loader = dm.train_dataloader(seed=seed)
+    mb = max(1, int(tcfg.get('microbatches', 1)))
+    train_loader = dm.train_dataloader(seed=seed, shard_rank=dist.rank(), shard_count=n_ranks,
+                                       microbatches=mb)
     if len(train_loader) == 0:
         raise ValueError(f'empty training loader: {len(dm.train_dataset)} samples with '
                          f'batch_size={dm.batch_size} (drop_last) yields no batches')
@@ -138,7 +154,7 @@ def train(config: dict, work_dir, *, compute_dtype=torch.bfloat16, max_steps: in
     ocfg = optim.OptimConfig(
         lr=mcfg['lr'], weight_decay=mcfg.get('weight_decay', 0.0),
         warmup_pct=mcfg.get('warmup_pct', 0.075), batch_size=dm.batch_size,
-        grad_clip=tcfg.get('gradient_clip_val', 20.0), total_steps=total_steps, num_devices=1,
+        grad_clip=tcfg.get('gradient_clip_val', 20.0), total_steps=total_steps, num_devices=n_ranks,
         accum=agb, swa=tcfg.get('swa', True), swa_epoch_start=tcfg.get('swa_epoch_start', 0.75))
     state = init_state(model, ocfg, accumulate=agb)
     is_abinet = 'abinet' in name
@@ -155,20 +171,19 @@ def train(config: dict, work_dir, *, compute_dtype=torch.bfloat16, max_steps: in
     swa_state = None
     resume = config.get('ckpt_path')
     if resume:
-        saved = torch.load(resume, map_location=device, weights_only=True)
+        # rank 0 reads the files; every rank resumes from what it read
+        saved, swa_state = dist.broadcast_object(_read_resume(resume) if is_main else None)
         model.load_state_dict(saved['model'])
         state['opt_state'].load_state_dict(saved['opt_state'])
         start_step = state['step'] = int(saved['step'])
-        swa_path = Path(resume).parent / 'swa_state.ckpt'
-        if swa_path.exists():
-            swa_state = torch.load(swa_path, map_location=device, weights_only=True)
+        if swa_state is not None:
+            swa_state['avg'] = [t.to(device) for t in swa_state['avg']]
             log.info(f'resumed SWA average ({swa_state["n"]} snapshots)')
         log.info(f'resumed training state from {resume} at step {start_step}')
     # Clamped to step 1: steps count from 1, so swa_epoch_start=0.0 averages
     # from the first step, not from the never-taken step 0.
     swa_start = max(1, int(ocfg.swa_epoch_start * total_micro)) if ocfg.swa else total_micro
 
-    mb = max(1, int(tcfg.get('microbatches', 1)))
     # keyed by `pretraining`: ABINet's staged training has a step for each stage
     if staged:
         steps_by_phase = {pre: make_train_step(family, cfg, compute_dtype, microbatches=mb,
@@ -180,8 +195,8 @@ def train(config: dict, work_dir, *, compute_dtype=torch.bfloat16, max_steps: in
                                                  **({'lm_only': True} if lm_only else {}))}
     alignment_reset_done = not staged or start_step >= PRETRAIN_FRAC * total_micro
     perm_rng = np.random.default_rng(seed)
-    jlog = JsonlLogger(work_dir / 'metrics.jsonl')
-    tb = TBEventWriter(work_dir / 'tb')
+    jlog = JsonlLogger(work_dir / 'metrics.jsonl') if is_main else None
+    tb = TBEventWriter(work_dir / 'tb') if is_main else None
     pad_id = len(tok) - 1
 
     def batch_val_loss(logits, logp, labels):
@@ -223,7 +238,8 @@ def train(config: dict, work_dir, *, compute_dtype=torch.bfloat16, max_steps: in
     n_validations = 0
     # Resume continues the data stream: same epoch order, consumed batches skipped.
     start_epoch, skip_batches = divmod(start_step, steps_per_epoch)
-    log.info(f'training {name}: {total_steps} steps, {steps_per_epoch}/epoch on {device}')
+    log.info(f'training {name}: {total_steps} steps, {steps_per_epoch}/epoch on {device}, '
+             f'rank {dist.rank()} of {n_ranks}')
     for epoch in range(start_epoch, 10 ** 9):
         if step >= total_micro or stop_early:
             break
@@ -244,7 +260,7 @@ def train(config: dict, work_dir, *, compute_dtype=torch.bfloat16, max_steps: in
             metrics = steps_by_phase[pretraining](state, batch,
                                                   _dropout_generator(device, seed, step))
             step += 1
-            if step % 50 == 0 or step == start_step + 1:
+            if is_main and (step % 50 == 0 or step == start_step + 1):
                 loss, gnorm = float(metrics['loss']), float(metrics['grad_norm'])
                 lr = state['opt_state'].sched(step // agb)
                 jlog.log(step=step, epoch=epoch, loss=loss, grad_norm=gnorm, lr=lr,
@@ -252,23 +268,26 @@ def train(config: dict, work_dir, *, compute_dtype=torch.bfloat16, max_steps: in
                 tb.add_scalars(step, {'loss': loss, 'grad_norm': gnorm, 'lr': lr})
             if step % val_every_micro == 0 or step == total_micro:
                 res, val_loss = validate()
-                jlog.log(step=step, val_accuracy=res.accuracy, val_NED=res.ned,
-                         val_loss=float(val_loss), val_confidence=res.confidence)
-                tb.add_scalars(step, {'val_accuracy': res.accuracy, 'val_NED': res.ned,
-                                      'val_loss': float(val_loss), 'hp_metric': res.accuracy})
                 log.info(f'step {step}: val_acc={res.accuracy:.2f} NED={res.ned:.2f} '
                          f'loss={val_loss:.4f}')
-                best_path = save_topk(ckpt_dir, step, res.accuracy, model.state_dict(), cfg,
-                                      meta={'name': name, 'model_config': mcfg}, k=3)
-                torch.save({'model': model.state_dict(), 'step': step,
-                            'opt_state': state['opt_state'].state_dict()},
-                           ckpt_dir / 'train_state.ckpt')
-                if swa_state is not None:
-                    torch.save(swa_state, ckpt_dir / 'swa_state.ckpt')
+                if is_main:
+                    jlog.log(step=step, val_accuracy=res.accuracy, val_NED=res.ned,
+                             val_loss=float(val_loss), val_confidence=res.confidence)
+                    tb.add_scalars(step, {'val_accuracy': res.accuracy, 'val_NED': res.ned,
+                                          'val_loss': float(val_loss),
+                                          'hp_metric': res.accuracy})
+                    best_path = save_topk(ckpt_dir, step, res.accuracy, model.state_dict(),
+                                          cfg, meta={'name': name, 'model_config': mcfg}, k=3)
+                    torch.save({'model': model.state_dict(), 'step': step,
+                                'opt_state': state['opt_state'].state_dict()},
+                               ckpt_dir / 'train_state.ckpt')
+                    if swa_state is not None:
+                        torch.save(swa_state, ckpt_dir / 'swa_state.ckpt')
                 n_validations += 1
-                if val_callback is not None and val_callback({
-                        'step': step, 'training_iteration': n_validations,
-                        'loss': float(val_loss), 'NED': res.ned, 'accuracy': res.accuracy}):
+                stop = val_callback is not None and bool(val_callback({
+                    'step': step, 'training_iteration': n_validations,
+                    'loss': float(val_loss), 'NED': res.ned, 'accuracy': res.accuracy}))
+                if dist.broadcast_object(stop):  # rank 0's decision: no rank stops alone
                     log.info(f'early stop requested by val_callback at step {step}')
                     stop_early = True
                     break
@@ -286,11 +305,22 @@ def train(config: dict, work_dir, *, compute_dtype=torch.bfloat16, max_steps: in
                                     _dropout_generator(device, seed, 10 ** 9))
         if n_bn:
             log.info(f'SWA: re-estimated batch-norm statistics over {n_bn} batches')
-        save_checkpoint(ckpt_dir / 'swa.ckpt', model.state_dict(), cfg,
-                        meta={'name': name, 'model_config': mcfg, 'swa': True})
+        if is_main:
+            save_checkpoint(ckpt_dir / 'swa.ckpt', model.state_dict(), cfg,
+                            meta={'name': name, 'model_config': mcfg, 'swa': True})
         model.load_state_dict(final)
-    tb.close()
+    if tb is not None:
+        tb.close()
     return state, best_path
+
+
+def _read_resume(path):
+    """The train state at `path` and the SWA sidecar beside it (or None), on
+    the CPU."""
+    saved = torch.load(path, map_location='cpu', weights_only=True)
+    swa_path = Path(path).parent / 'swa_state.ckpt'
+    swa = torch.load(swa_path, map_location='cpu', weights_only=True) if swa_path.exists() else None
+    return saved, swa
 
 
 def _to_device(prepared, images, device):
@@ -307,8 +337,10 @@ def reestimate_batchnorm(model, family, cfg, tok, loader, n_batches, perm_rng, c
     train-mode forwards of the family's loss (no static keywords, dropout
     on) over `n_batches` train batches of a fresh shuffle, each moving the
     statistics by the momentum-0.1 EMA from where they stand (not
-    swa_utils.update_bn's reset and cumulative mean). Returns the batches
-    run: 0 when the model has no batch norm."""
+    swa_utils.update_bn's reset and cumulative mean); on several ranks each
+    forward is of the rank's rows and the statistics the global batch's
+    (ops/cnn.py). Returns the batches run: 0 when the model has no batch
+    norm."""
     if not any(isinstance(m, torch.nn.modules.batchnorm._BatchNorm) for m in model.modules()):
         return 0
     device = next(model.parameters()).device

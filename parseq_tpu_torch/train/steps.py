@@ -8,12 +8,19 @@ gradient reduction in float32.
 State: {'model': nn.Module (the f32 params), 'opt_state': optim.AdamW,
 'step': int (loader micro-steps taken), 'accum': list or None}. The step
 updates it in place.
+
+On several ranks (parallel/dist.py) each holds its share of every global
+microbatch (data/loader.py:shard_positions) and the step computes what the
+JAX package's SPMD step computes over the global batch: each loss divides
+by its global count, the gradients are summed over the ranks in one
+all-reduce, and batch norms take global statistics (ops/cnn.py).
 """
 
 from __future__ import annotations
 
 import torch
 
+from parseq_tpu_torch.parallel import dist
 from parseq_tpu_torch.train import optim
 
 
@@ -52,9 +59,16 @@ def make_train_step(family, cfg, compute_dtype=torch.bfloat16, microbatches=1, a
     dropout, or None. `static` keywords go to the family's loss (ABINet's
     pretraining / lm_only). A model in train mode moves its batch-norm
     running statistics once per microbatch, in order (the JAX package's
-    scan threads them so). Metrics: loss (mean over microbatches), numel,
-    and grad_norm of this call's gradients, as 0-dim tensors (no host
-    sync)."""
+    scan threads them so). Metrics: loss (mean over microbatches), numel
+    (the family's count over the global batch, what the losses divide
+    by), and grad_norm of this call's gradients, as 0-dim tensors (no host
+    sync).
+
+    On N ranks `batch` is the rank's rows. Before the first forward one
+    all-reduce sums the family's per-microbatch counts; each rank's loss is
+    scaled by N * local / global count (exactly 1 on one rank), so that
+    after the gradient all-reduce and the division by N (DDP's mean) every
+    rank holds the gradient of the global microbatch losses."""
 
     def train_step(state, batch, rng):
         model = state['model']
@@ -63,22 +77,28 @@ def make_train_step(family, cfg, compute_dtype=torch.bfloat16, microbatches=1, a
         B = batch['images'].shape[0]
         m = microbatches if microbatches > 1 and B % microbatches == 0 else 1
         mb = B // m
+        n_ranks = dist.world_size()
         for p in params:
             p.grad = None
-        loss_sum = torch.zeros((), device=batch['images'].device)
-        numel_sum = torch.zeros((), dtype=torch.long, device=batch['images'].device)
-        for i in range(m):
-            # per-sample arrays are split; shared ones (the perm set) are not
-            mbatch = {k: v[i * mb:(i + 1) * mb] if v.dim() > 0 and v.shape[0] == B else v
-                      for k, v in batch.items()}
-            loss, numel = family.loss(model, cfg, mbatch, rng, compute_dtype, **static)
+        # in the parameters' dtype: float32, or float64 for a float64 model
+        loss_sum = torch.zeros((), dtype=params[0].dtype, device=batch['images'].device)
+        # per-sample arrays are split; shared ones (the perm set) are not
+        mbatches = [{k: v[i * mb:(i + 1) * mb] if v.dim() > 0 and v.shape[0] == B else v
+                     for k, v in batch.items()} for i in range(m)]
+        # each microbatch's count summed over the ranks; the scales are 1 on one rank
+        local = torch.stack([family.count(cfg, mbatch) for mbatch in mbatches]).long()
+        total = dist.all_reduce_(local.clone())
+        scales = n_ranks * local.double() / total.clamp(min=1).double()
+        for i, mbatch in enumerate(mbatches):
+            loss, _ = family.loss(model, cfg, mbatch, rng, compute_dtype, **static)
+            loss = loss * scales[i].to(loss.dtype)
             loss.backward()
             loss_sum += loss.detach()
-            numel_sum += numel
         # a parameter the loss does not reach (ABINet's lm_only) has a zero gradient
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-        if m > 1:
-            torch._foreach_div_(grads, m)
+        dist.all_reduce_flat_([*grads, loss_sum])
+        if m * n_ranks > 1:
+            torch._foreach_div_(grads, m * n_ranks)
         state['step'] += 1
         if state['accum'] is None:
             gnorm = state['opt_state'].step(params, grads)
@@ -89,6 +109,6 @@ def make_train_step(family, cfg, compute_dtype=torch.bfloat16, microbatches=1, a
                 torch._foreach_div_(state['accum'], accumulate)
                 state['opt_state'].step(params, state['accum'])
                 torch._foreach_zero_(state['accum'])
-        return {'loss': loss_sum / m, 'numel': numel_sum, 'grad_norm': gnorm}
+        return {'loss': loss_sum / (m * n_ranks), 'numel': total.sum(), 'grad_norm': gnorm}
 
     return train_step

@@ -33,6 +33,9 @@ TRAIN_MODULES = ('ops.ctc', 'train.families', 'train.loop', 'train.optim', 'cli.
 # Serving and tuning.
 SERVE_MODULES = ('serve', 'serve.server', 'cli.serve', 'cli.tune', 'data.transforms',
                  'utils.pretrained')
+# Several devices and the model-loading tools.
+PARALLEL_MODULES = ('parallel', 'parallel.dist', 'parallel.dryrun', 'tools',
+                    'tools.certify_pretrained', 'tools.abinet_lm_acc')
 
 
 def test_port_imports_without_jax():
@@ -41,7 +44,7 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     walked, shared = out.stdout.split('\n')[:2]
     assert {f'parseq_tpu_torch.ops.{m}' for m in KERNEL_MODULES} <= set(walked.split(','))
-    modules = READ_MODULES + TRAIN_MODULES + SERVE_MODULES
+    modules = READ_MODULES + TRAIN_MODULES + SERVE_MODULES + PARALLEL_MODULES
     assert {f'parseq_tpu_torch.{m}' for m in modules} <= set(walked.split(','))
     assert shared == '', f'the port loaded modules of the JAX package: {shared}'
 

@@ -228,7 +228,7 @@ def test_train_rejects_unknown_keys_and_devices(data_root, tmp_path):
     cfg['data']['bogus'] = 1
     with pytest.raises(ValueError, match='unknown data config'):
         train(cfg, tmp_path / 'b', device='cpu')
-    with pytest.raises(NotImplementedError, match='item 10'):
+    with pytest.raises(ValueError, match='in no process group'):
         train(_config(data_root, devices=2), tmp_path / 'c', device='cpu')
 
 
