@@ -6,10 +6,13 @@
 Drives the port's main paths once, at full width and depth (random weights
 from a seed), in phases, each printing its result:
 
-  1. environment: versions, nvcc, optional modules, card name and power limit;
+  1. environment: versions, nvcc, optional modules, card name and power
+     limit, g++'s path, whether jpeglib.h is there, native_build.status();
   2. build: kernels B1 (csrc/ar_decode.cu), B2 and B3 (csrc/attention.cu),
      B4 (csrc/flash_bwd.cu) and B5 (csrc/encoder_blocks.cu) with nvcc for
-     sm_90a, all compiles started together;
+     sm_90a, and the native host helpers (utils/editdist.cpp,
+     data/native/lmdb_reader.cpp and jpeg_decode.cpp) with g++ where the
+     toolchain is, all compiles started together;
   3. kernel vs plain: B1 (fused AR decode) against its plain PyTorch
      version on its shared card check (ops/ar_kernel.py: check_run,
      teacher-forced on the kernel's picks; |kernel - plain| relative to
@@ -81,12 +84,15 @@ from a seed), in phases, each printing its result:
      at L = 197 and B = 1, and in f32 at L = 197; B3 at L = 128, 197); each
      model's forward in images/s, the CNN families' too;
   8. main paths of evaluation and benchmarking: a synthetic LMDB of
-     PIL-rendered words, one database per benchmark set at its published
-     size (10,340 words in all), under build/; parseq_tpu_torch.cli.test
+     PIL-rendered words (PNG), one database per benchmark set at its
+     published size (10,340 words in all), under build/ (read through the
+     native LMDB reader where it built); parseq_tpu_torch.cli.test
      evaluates PARSeq-S (B1's launch count set to 0 just before and risen
      to at least a launch a batch after) and CRNN on it at batch 512, prints
      both tables, the images read per second and the time of it spent
-     waiting on the loader, with the model's load timed apart;
+     waiting on the loader, with the model's load timed apart; PARSeq-S
+     again with the Python LMDB reader in the native one's place, its
+     tables equal to the first run's;
      parseq_tpu_torch.cli.bench benches PARSeq-S at B = 1 and 256 (B1's
      count likewise) and CRNN and TRBA at B = 1, each printing the card's
      name and power limit and its JSON line; then every model's MACs per
@@ -151,7 +157,37 @@ from a seed), in phases, each printing its result:
      on phase 4's ABINet weights over a synthetic LMDB of 300 words gives
      the same count on cuda as on the CPU, and the language model's
      probabilities (tools.abinet_lm_acc.batch_probs) on both within
-     LM_LIMIT of the largest.
+     LM_LIMIT of the largest;
+ 12. the native host helpers, the JAX checkpoint format and the int8
+     encoder: (a) on the card's host, every LMDB lookup of phase 8's
+     benchmark sets through the native reader equal to the Python
+     reader's, NATIVE_JPEGS seeded words rendered as JPEGs through the
+     native decode+resize bit-equal to PIL's and NATIVE_FULL_DECODES of
+     them through the full-resolution decode equal to PIL's
+     convert('RGB'), and NATIVE_PAIRS seeded string pairs' native edit
+     distances equal to the Python DP's, each with its time per item (a
+     helper that did not build, for want of g++ or jpeglib.h, is reported
+     so; the libjpeg versions of Pillow and of the build are printed); (b)
+     phase 4's PARSeq-S weights (as phase 10 leaves them) written as a JAX
+     package checkpoint by experiments/torch_jax_ckpt.py and as a .pt,
+     both loaded on cuda: equal weights, equal B = 7 reads (B1 once each);
+     (c) int8 PARSeq-S and ViTSTR (ops/quant.py, rows spread by
+     CHECK_SPREAD, random weights as they are): logits that depend on the
+     encoder alone against bf16 within CHECK_LIMITS with greedy picks
+     equal where the bf16 margin exceeds the error, 4 x depth int8
+     products (aten._int_mm) a forward, two planted faults failing (codes
+     made with per-input-channel scales; the last block's fc2 left
+     unquantized, one product short), a read of INT8_IMAGES images
+     launching B1 once (PARSeq-S) or B2 12 times (ViTSTR) whose logits
+     pass quant.check_reads against the bf16 read's (picks equal where
+     each image's margin exceeds its error; an image so decided through
+     its EOS reads as bf16 does), and the encoder at B = 256 in bf16 and
+     int8 timed; (d) int8_linear on cuda
+     against the CPU at PARSeq-S's qkv and fc2 shapes (weight and
+     activation codes and scales and the int32 sums equal, outputs within
+     1e-6 of the largest) and _int_mm's time with either weight layout;
+     (e) cli.bench --int8 of PARSeq-S at B = 1 and 256, its MACs equal to
+     the bf16 model's.
 
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the repository beside it, it fails and prints no result. The last lines
@@ -372,6 +408,14 @@ RANK_LIMITS = {torch.float64: {'grad': 1e-10, 'other': 1e-10},
                torch.float32: {'grad': 1e-4, 'other': 1e-4}}
 LM_WORDS = 300
 LM_LIMIT = 1e-4
+# Phase 12: the native helpers' JPEGs (seeded words rendered at quality
+# 95), full-resolution decodes of them and string pairs; int8_linear on cuda against the CPU at PARSeq-S's qkv and fc2 over
+# the tokens of 7 images.
+NATIVE_JPEGS = 4000
+NATIVE_FULL_DECODES = 2000
+NATIVE_PAIRS = 20000
+INT8_LINEAR_SHAPES = ((7 * 128, 384, 1152), (7 * 128, 1536, 384))
+INT8_IMAGES = 32
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
@@ -505,24 +549,25 @@ def grad_check(what, got, want, leaves, grad):
     return errs
 
 
-def render_word(text):
-    """A PNG of `text` in PIL's default font, black on a light background."""
+def render_word(text, fmt='PNG'):
+    """`text` in PIL's default font, black on a light background, encoded as
+    `fmt` (PNG, or JPEG at quality 95)."""
     from PIL import Image, ImageDraw
 
     img = Image.new('RGB', (8 * len(text) + 8, 24), (235, 235, 225))
     ImageDraw.Draw(img).text((4, 6), text, fill=(10, 10, 10))
     buf = io.BytesIO()
-    img.save(buf, 'PNG')
+    img.save(buf, fmt, **({'quality': 95} if fmt == 'JPEG' else {}))
     return buf.getvalue()
 
 
-def write_lmdb(path, words):
+def write_lmdb(path, words, fmt='PNG'):
     from parseq_tpu_torch.data.lmdb import LmdbWriter
 
     with LmdbWriter(path) as w:
         w.put(b'num-samples', str(len(words)).encode())
         for i, word in enumerate(words, start=1):
-            w.put(f'image-{i:09d}'.encode(), render_word(word))
+            w.put(f'image-{i:09d}'.encode(), render_word(word, fmt))
             w.put(f'label-{i:09d}'.encode(), word.encode())
 
 
@@ -543,11 +588,13 @@ def main():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
         return 1
     from parseq_tpu_torch import hub
+    from parseq_tpu_torch.data import native
     from parseq_tpu_torch.kernels.build import find_nvcc
     from parseq_tpu_torch.models.abinet import ABINet
     from parseq_tpu_torch.models.parseq import PARSeq, PARSeqConfig
     from parseq_tpu_torch.ops import ar_kernel, attention, encoder_kernel, flash_bwd
     from parseq_tpu_torch.serve.server import _rungs
+    from parseq_tpu_torch.utils import metrics, native_build
     from parseq_tpu_torch.utils.registry import create_model
 
     from experiments import torch_encoder_kernel_bench as enc_bench
@@ -564,13 +611,20 @@ def main():
     print('importable: ' + ', '.join(f'{m}={importable(m)}' for m in ('triton', 'yaml', 'PIL')))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f'card: {card}; devices {torch.cuda.device_count()}; SMs {sms}')
+    toolchain = native_build.status()
+    print(f'g++ {toolchain["g++"]}; jpeglib.h present: {toolchain["jpeglib.h"]}; '
+          f'native_build.status() {json.dumps(toolchain)}')
 
-    phase('2 build (B1, B2 and B3, B4, B5 in parallel)')
+    phase('2 build (B1, B2 and B3, B4, B5 with nvcc; the native host helpers with g++; '
+          'in parallel)')
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(7) as pool:
         libs = list(pool.map(lambda build: build(), (ar_kernel.library, attention.library,
-                                                     flash_bwd.library, encoder_kernel.library)))
-    print(f'built {", ".join(lib._name for lib in libs)} in {time.perf_counter() - t0:.1f} s')
+                                                     flash_bwd.library, encoder_kernel.library,
+                                                     metrics.load, native.load, native.load_jpeg)))
+    print(f'built {", ".join(lib._name for lib in libs if lib is not None)} in '
+          f'{time.perf_counter() - t0:.1f} s; native helpers '
+          f'{json.dumps(native_build.status()["helpers"])}')
 
     phase('3 kernel vs plain')
     rng = np.random.default_rng(SEED)
@@ -946,7 +1000,10 @@ def main():
     print(f'training PARSeq-S B=384 [{card}]: ' + json.dumps(train_info))
 
     phase(f'8 main paths on cuda: cli.test (PARSeq-S, CRNN) and cli.bench [{card}]')
-    eval_b1, eval_times = eval_phase(bundles['parseq'], cnn_bundles['crnn'])
+    build_dir = Path(__file__).resolve().parent / 'build'
+    build_dir.mkdir(exist_ok=True)
+    eval_data = Path(tempfile.mkdtemp(prefix='smoke-evaldata-', dir=build_dir))
+    eval_b1, eval_times = eval_phase(bundles['parseq'], cnn_bundles['crnn'], eval_data)
     main_launches['B1'] += eval_b1
     print(f'cli.test [{card}]: ' + json.dumps(eval_times))
     from parseq_tpu_torch.cli.bench import per_image_flops
@@ -985,6 +1042,17 @@ def main():
     main_launches['B4'] += rank_info['b4']
     print(f'phase 11 wall {time.perf_counter() - t0:.1f} s')
 
+    phase(f'12 the native host helpers, a JAX package checkpoint and the int8 encoder on cuda '
+          f'[{card}]')
+    t0 = time.perf_counter()
+    host_info = native_phase(eval_data)
+    shutil.rmtree(eval_data, ignore_errors=True)
+    int8_info = int8_phase(card, certify_sd)
+    main_launches['B1'] += int8_info['b1']
+    main_launches['B2'] += int8_info['b2']
+    print(f'phase 12 wall {time.perf_counter() - t0:.1f} s: ' + json.dumps(
+        {'native': host_info, 'int8': int8_info}))
+
     b1_ms, b2_ms, b4_ms = b1_bound(TIMED_BATCH, 128, PARSeqConfig()), b2_bound(
         TIMED_BATCH, 197, 6, 384), b4_bound(*B4_SHAPES[0])
     b3_ms = b3_bound(6 * TIMED_BATCH, 128, 64)
@@ -999,6 +1067,7 @@ def main():
          'library_ms': None, 'at': f'B={TIMED_BATCH} M=128 (PARSeq-S)',
          'launches_serving': serve_info['b1'], 'launches_tuning_validation': tune_info['b1'],
          'launches_two_ranks_and_tools': rank_info['b1'],
+         'launches_int8_and_jax_checkpoint_reads': int8_info['b1'],
          'prep_ms': timed['B1', 'PARSeq-S', TIMED_BATCH][2],
          **{f'ms_b{B}': timed['B1', 'PARSeq-S', B][0] for B in B1_TIMED_BATCHES[:-1]}},
         {'name': 'fused_attention_nosplit', 'route': 'cuda',
@@ -1007,6 +1076,7 @@ def main():
          'launches': main_launches['B2'], 'max_abs_err': b2_err,
          'launches_vitstr_training': family_info['b2_vitstr_cli'],
          'launches_abinet_validation': family_info['b2_abinet_cli'],
+         'launches_int8_vitstr_reads': int8_info['b2'],
          'ms': timed['B2', 197][0], 'plain_ms': timed['B2', 197][1],
          'bound_ms': b2_ms[0], 'bound_us': b2_ms[0] * 1e3, 'bound_by': b2_ms[1],
          'library_ms': timed['B2', 197][2], 'at': f'B={TIMED_BATCH} L=197 h=6 D=384 (ViTSTR)'},
@@ -1157,13 +1227,20 @@ def read_cnn_family(name, bundle, rng):
     print(f'{name}: launches no TPU kernel')
 
 
-def eval_phase(parseq_bundle, crnn_bundle):
+def eval_phase(parseq_bundle, crnn_bundle, data_root):
     """cli.test evaluates PARSeq-S and CRNN (their phase-4 weights, saved as
     reference state_dicts) on a synthetic LMDB of the benchmark sets at their
-    published sizes, and cli.bench benches BENCH_RUNS, as a user calls them.
-    Returns B1's launches in these runs and each model's evaluation times."""
+    published sizes, written under `data_root` (phase 12 reads it again; the
+    caller removes it), and PARSeq-S once more with the Python LMDB reader in
+    place of the native one; cli.bench benches BENCH_RUNS, as a user calls
+    them. Returns B1's launches in these runs and each run's evaluation
+    times."""
+    from unittest import mock
+
     from parseq_tpu_torch.cli import bench as bench_cli
     from parseq_tpu_torch.cli import test as test_cli
+    from parseq_tpu_torch.data import dataset
+    from parseq_tpu_torch.data.lmdb import LmdbReader
     from parseq_tpu_torch.data.module import TEST_BENCHMARK, TEST_BENCHMARK_SUB
     from parseq_tpu_torch.ops import ar_kernel
 
@@ -1176,22 +1253,28 @@ def eval_phase(parseq_bundle, crnn_bundle):
     root = Path(__file__).resolve().parent / 'build'
     root.mkdir(exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix='smoke-eval-', dir=root))
-    b1, timings = 0, {}
+    b1, timings, tables = 0, {}, {}
     try:
         t0 = time.perf_counter()
         for name in sets:
-            write_lmdb(tmp / 'data' / 'test' / name,
+            write_lmdb(data_root / 'test' / name,
                        [''.join(rng.choice(letters, rng.integers(3, 11)))
                         for _ in range(EVAL_SETS[name])])
         print(f'synthetic LMDB: {len(sets)} benchmark sets, {sum(EVAL_SETS.values())} '
               f'PIL-rendered words ({EVAL_SETS}) in {time.perf_counter() - t0:.1f} s')
-        for family, bundle in (('parseq', parseq_bundle), ('crnn', crnn_bundle)):
+        for run, family, bundle in (('parseq', 'parseq', parseq_bundle),
+                                    ('crnn', 'crnn', crnn_bundle),
+                                    ('parseq_python_reader', 'parseq', parseq_bundle)):
             ckpt = tmp / f'{family}-smoke.pt'
             torch.save({k: v.cpu() for k, v in bundle.module.state_dict().items()}, ckpt)
             ar_kernel.launches = 0
             t0 = time.perf_counter()
-            results, timing = test_cli.main([str(ckpt), '--data_root', str(tmp / 'data'),
-                                             '--device', 'cuda', '--batch_size', str(EVAL_BATCH)])
+            # the loader's workers are forked: they open the patched reader
+            with (mock.patch.object(dataset, 'open_reader', LmdbReader)
+                  if run.endswith('python_reader') else contextlib.nullcontext()):
+                results, timing = test_cli.main([str(ckpt), '--data_root', str(data_root),
+                                                 '--device', 'cuda',
+                                                 '--batch_size', str(EVAL_BATCH)])
             wall = time.perf_counter() - t0
             launches = ar_kernel.launches
             if family == 'parseq':
@@ -1206,9 +1289,13 @@ def eval_phase(parseq_bundle, crnn_bundle):
                 raise AssertionError(f'cli.test {family}: {results}')
             if '| Combined' not in Path(str(ckpt) + '.log.txt').read_text():
                 raise AssertionError(f'cli.test {family}: no results table in its log file')
+            tables[run] = results
+            if run == 'parseq_python_reader' and tables[run] != tables['parseq']:
+                raise AssertionError(f'cli.test PARSeq-S reads otherwise with the Python LMDB '
+                                     f'reader: {tables[run]} vs {tables["parseq"]}')
             img_s = timing['images'] / timing['eval_s']
-            timings[family] = dict(timing, batches=batches, img_per_s=img_s, wall_s=wall)
-            print(f'cli.test {family}: {timing["images"]} images in {batches} batches of <= '
+            timings[run] = dict(timing, batches=batches, img_per_s=img_s, wall_s=wall)
+            print(f'cli.test {run}: {timing["images"]} images in {batches} batches of <= '
                   f'{EVAL_BATCH}, read in {timing["eval_s"]:.3f} s = {img_s:.1f} img/s, '
                   f'{timing["loader_s"]:.3f} s of it waiting on the loader '
                   f'({timing["first_batch_s"]:.3f} s for the first batch of each set); model '
@@ -2327,6 +2414,301 @@ def tools_on_card(certify_sd, abinet_sd, tmp, rng):
           f'{LM_LIMIT}); '
           f'{time.perf_counter() - t0:.1f} s')
     return certify_b1
+
+
+def _rate(fn, n):
+    """(result, seconds per item) of one call of `fn` over `n` items."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) / n
+
+
+def native_phase(data_root):
+    """12a. The native host helpers against their plain versions on the
+    card's host: every LMDB lookup of phase 8's synthetic benchmark sets
+    (native reader vs the Python reader), NATIVE_JPEGS seeded words
+    rendered as JPEGs (native decode+resize vs PIL's, bit-equal; the
+    full-resolution decode vs PIL's convert('RGB') on NATIVE_FULL_DECODES
+    of them), NATIVE_PAIRS seeded string pairs (editdist batch vs the
+    Python DP), each with its time per item. A helper that did not build
+    (no toolchain) is reported as such. Returns the rates."""
+    from PIL import Image, features
+
+    from parseq_tpu_torch.data import native
+    from parseq_tpu_torch.data.lmdb import LmdbReader
+    from parseq_tpu_torch.data.transforms import preprocess_pil_u8
+    from parseq_tpu_torch.utils import metrics, native_build
+
+    for load in (native.load, native.load_jpeg, metrics.load):
+        load()
+    print(f'native helpers: {json.dumps(native_build.status())}')
+    print(f'libjpeg: Pillow\'s {features.version("jpg")} (libjpeg-turbo '
+          f'{features.version("libjpeg_turbo")}); the native build\'s (JPEG_LIB_VERSION, '
+          f'LIBJPEG_TURBO_VERSION) {native.jpeg_lib_version() or "not built"}')
+    info = {}
+    dbs = sorted((data_root / 'test').iterdir())
+    keys = {db: [k for i in range(1, EVAL_SETS[db.name] + 1)
+                 for k in (f'image-{i:09d}'.encode(), f'label-{i:09d}'.encode())] for db in dbs}
+    n_keys = sum(len(v) for v in keys.values())
+
+    def lookups(reader_cls):
+        out = []
+        for db in dbs:
+            with reader_cls(db) as r:
+                out.extend(r.get(k) for k in keys[db])
+        return out
+
+    values, py_s = _rate(lambda: lookups(LmdbReader), n_keys)
+    if native.load() is None:
+        print(f'LMDB lookups: native reader not built; Python reader {py_s * 1e6:.3f} us each')
+    else:
+        got, nat_s = _rate(lambda: lookups(native.NativeLmdbReader), n_keys)
+        if got != values:
+            raise AssertionError('the native LMDB reader disagrees with the Python reader')
+        info['lmdb_us'] = {'native': nat_s * 1e6, 'python': py_s * 1e6}
+        print(f'LMDB lookups ({n_keys} keys of {len(dbs)} databases, values equal): native '
+              f'{nat_s * 1e6:.3f} us, Python {py_s * 1e6:.3f} us each ({py_s / nat_s:.2f}x)')
+
+    rng = np.random.default_rng(SEED + 12)
+    letters = np.array(list(string.digits + string.ascii_lowercase))
+    images = [render_word(''.join(rng.choice(letters, rng.integers(3, 11))), 'JPEG')
+              for _ in range(NATIVE_JPEGS)]
+    pil, pil_s = _rate(lambda: [preprocess_pil_u8(Image.open(io.BytesIO(v))) for v in images],
+                       len(images))
+    if native.load_jpeg() is None:
+        print(f'JPEG decode+resize: native decoder not built; PIL {pil_s * 1e6:.2f} us each')
+    else:
+        got, nat_s = _rate(lambda: [native.jpeg_decode_resize(v) for v in images], len(images))
+        if not all(g is not None and np.array_equal(g, w) for g, w in zip(got, pil)):
+            raise AssertionError('the native JPEG decode+resize differs from PIL\'s pixels')
+        full = images[:NATIVE_FULL_DECODES]
+        want, pil_full_s = _rate(lambda: [np.asarray(Image.open(io.BytesIO(v)).convert('RGB'))
+                                          for v in full], len(full))
+        got, nat_full_s = _rate(lambda: [native.jpeg_decode(v) for v in full], len(full))
+        if not all(g is not None and np.array_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError('the native full-resolution JPEG decode differs from PIL\'s')
+        info['jpeg_us'] = {'native': nat_s * 1e6, 'pil': pil_s * 1e6,
+                           'full_native': nat_full_s * 1e6, 'full_pil': pil_full_s * 1e6}
+        print(f'JPEG decode+resize to 32x128 ({len(images)} images, pixels equal): native '
+              f'{nat_s * 1e6:.2f} us, PIL {pil_s * 1e6:.2f} us each ({pil_s / nat_s:.2f}x); '
+              f'full-resolution decode ({len(full)}, equal): native {nat_full_s * 1e6:.2f} us, '
+              f'PIL {pil_full_s * 1e6:.2f} us each ({pil_full_s / nat_full_s:.2f}x)')
+
+    words = [''.join(rng.choice(letters, rng.integers(0, 26))) for _ in range(2 * NATIVE_PAIRS)]
+    preds, gts = words[:NATIVE_PAIRS], words[NATIVE_PAIRS:]
+    want, dp_s = _rate(lambda: [metrics.edit_distance(a, b) for a, b in zip(preds, gts)],
+                       NATIVE_PAIRS)
+    if metrics.load() is None:
+        print(f'edit distance: native batch core not built; Python DP {dp_s * 1e6:.2f} us a pair')
+    else:
+        got, nat_s = _rate(lambda: metrics.edit_distance_batch(preds, gts), NATIVE_PAIRS)
+        if got.tolist() != want:
+            raise AssertionError('the native edit distance differs from the Python DP')
+        info['editdist_us'] = {'native': nat_s * 1e6, 'python': dp_s * 1e6}
+        print(f'edit distance ({NATIVE_PAIRS} pairs of 0-25 characters, equal): native batch '
+              f'{nat_s * 1e6:.3f} us, Python DP {dp_s * 1e6:.2f} us a pair ({dp_s / nat_s:.1f}x)')
+    return info
+
+
+def int8_phase(card, parseq_sd):
+    """12b-e on cuda: a JAX package checkpoint of `parseq_sd` (phase 4's
+    PARSeq-S weights as phase 10 leaves them), written by
+    experiments/torch_jax_ckpt.py, read like the .pt of the same weights;
+    int8 PARSeq-S and ViTSTR (ops/quant.py's card check, its two planted
+    faults, the int8 product count a forward, B1 and B2 in the reads);
+    int8_linear on cuda against the CPU; the encoder times; cli.bench
+    --int8. Returns B1's and B2's launches."""
+    from experiments.torch_encoder_kernel_bench import cuda_median_ms
+    from experiments.torch_jax_ckpt import save_parseq_as_jax
+    from parseq_tpu_torch import hub
+    from parseq_tpu_torch.cli import bench as bench_cli
+    from parseq_tpu_torch.ops import ar_kernel, quant
+    from parseq_tpu_torch.utils.config import compose
+    from parseq_tpu_torch.utils.registry import load_from_checkpoint
+
+    info = {'b1': 0, 'b2': 0}
+    rng = np.random.default_rng(SEED + 13)
+    tmp = Path(tempfile.mkdtemp(prefix='smoke-jaxckpt-',
+                                dir=Path(__file__).resolve().parent / 'build'))
+    try:
+        torch.save(parseq_sd, tmp / 'parseq-smoke.pt')
+        save_parseq_as_jax(tmp / 'parseq-smoke-jax.ckpt', parseq_sd, compose('parseq')['model'])
+        pt = load_from_checkpoint(str(tmp / 'parseq-smoke.pt'), device='cuda')
+        jx = load_from_checkpoint(str(tmp / 'parseq-smoke-jax.ckpt'), device='cuda')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    jx_sd = jx.module.state_dict()
+    if any(not torch.equal(v, jx_sd[k]) for k, v in pt.module.state_dict().items()):
+        raise AssertionError('the JAX checkpoint loads other weights than the .pt of the same')
+    x = rng.uniform(-1, 1, (7, *pt.img_size, 3)).astype(np.float32)
+    ar_kernel.launches = 0
+    reads = pt.read(x), jx.read(x)
+    if ar_kernel.launches != 2 or reads[0] != reads[1]:
+        raise AssertionError(f'JAX checkpoint reads {reads[1]} vs .pt reads {reads[0]}, '
+                             f'B1 launches {ar_kernel.launches} (2 expected)')
+    info['b1'] += ar_kernel.launches
+    print(f'JAX package checkpoint (experiments/torch_jax_ckpt.py) of PARSeq-S on cuda: weights '
+          f'equal to the .pt\'s, B=7 reads and confidences equal {reads[1][0][:3]}; B1 launches '
+          f'{ar_kernel.launches}')
+    del pt, jx
+
+    for name in ('parseq', 'vitstr'):
+        int8_model_check(name, card, rng, info)
+
+    for M, K, N in INT8_LINEAR_SHAPES:
+        g = torch.Generator().manual_seed(SEED + M)
+        w = torch.randn(N, K, generator=g) * torch.exp(
+            torch.empty(N, 1).uniform_(-2, 2, generator=g))
+        lin = quant.quantize_linear(torch.nn.Linear(K, N))
+        lin.w_q, lin.w_scale = quant.quantize_weight(w)
+        lin.bias = torch.randn(N, generator=g)
+        x = torch.randn(M, K, generator=g) * torch.exp(
+            torch.empty(M, 1).uniform_(-3, 3, generator=g))
+        want_codes = quant.quantize_activations(x)
+        want_acc = quant.int8_accumulate(want_codes[0], lin.w_q)
+        want = quant.int8_linear(x, lin.weight, lin.bias)
+        lin_c, x_c = copy.deepcopy(lin).cuda(), x.cuda()
+        codes = quant.quantize_activations(x_c)
+        acc = quant.int8_accumulate(codes[0], lin_c.w_q)
+        got = quant.int8_linear(x_c, lin_c.weight, lin_c.bias).cpu()
+        rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+        err = float((got - want).abs().max() / want.abs().max())
+        equal = {'weight codes': torch.equal(lin_c.w_q.cpu(), lin.w_q),
+                 'activation codes': torch.equal(codes[0].cpu(), want_codes[0]),
+                 'activation scales': torch.equal(codes[1].cpu(), want_codes[1]),
+                 'int32 sums': torch.equal(acc.cpu(), want_acc)}
+        w_cuda = quant.quantize_weight(w.cuda())
+        equal['weights quantized on cuda'] = (torch.equal(w_cuda[0].cpu(), lin.w_q)
+                                              and torch.equal(w_cuda[1].cpu(), lin.w_scale))
+        if not (all(equal.values()) and err <= 1e-6):
+            raise AssertionError(f'int8_linear ({M}, {K}) x ({K}, {N}) on cuda vs the CPU: '
+                                 f'equal {equal}, outputs within 1e-6 of max|out|: {err:.3e}')
+        print(f'int8_linear ({M}, {K}) x ({K}, {N}) cuda vs CPU: weight codes and scales '
+              f'(also quantized on cuda), activation codes and scales, int32 sums equal; max '
+              f'|difference| {err:.3e} of max|out| (largest elementwise relative {rel:.3e})')
+    # the weight layout _int_mm takes: (N, K) row-major passed transposed, vs (K, N) row-major
+    M, K, N = TIMED_BATCH * 128, 384, 1152
+    xq = torch.randint(-127, 128, (M, K), dtype=torch.int8, device='cuda')
+    wq = torch.randint(-127, 128, (N, K), dtype=torch.int8, device='cuda')
+    wkn = wq.t().contiguous()
+    xb, wb = xq.to(torch.bfloat16), wq.to(torch.bfloat16)
+    layout_ms = {}
+    for layout, fn in (('(N,K) row-major as .t()', lambda: torch._int_mm(xq, wq.t())),
+                       ('(K,N) row-major', lambda: torch._int_mm(xq, wkn)),
+                       ('bf16 x @ w.t()', lambda: xb @ wb.t())):
+        try:
+            layout_ms[layout] = cuda_median_ms(fn)
+        except RuntimeError as e:  # a layout _int_mm refuses is a finding, not a failure
+            layout_ms[layout] = f'raises: {str(e).splitlines()[0]}'
+    if not isinstance(layout_ms['(N,K) row-major as .t()'], float):
+        raise AssertionError(f'_int_mm refuses the stored weight layout: {layout_ms}')
+    info['int_mm_layout_ms'] = layout_ms
+    print(f'_int_mm ({M}, {K}) x ({K}, {N}) [{card}]: ' + ', '.join(
+        f'{k} {v if isinstance(v, str) else f"{v:.4f} ms"}' for k, v in layout_ms.items()))
+
+    for B in (1, TIMED_BATCH):
+        ar_kernel.launches = 0
+        (r,) = bench_cli.main(['--model', 'parseq', '--batch_size', str(B), '--int8'])
+        macs = bench_cli.per_image_flops(hub.parseq(seed=SEED), torch.rand(
+            1, 32, 128, 3, device='cuda'))
+        if ar_kernel.launches < 1 or r['flops_per_img_G'] != round(macs / 1e9, 3):
+            raise AssertionError(f'cli.bench --int8 B={B}: {r}, B1 launches {ar_kernel.launches}, '
+                                 f'bf16 MACs {macs / 1e9:.4f} G')
+        info['b1'] += ar_kernel.launches
+        info[f'bench_int8_b{B}'] = r
+        print(f'cli.bench --int8 B={B}: MACs equal the bf16 model\'s; B1 launches '
+              f'{ar_kernel.launches}')
+    return info
+
+
+def int8_model_check(name, card, rng, info):
+    """12c for one family (parseq or vitstr), random weights of `hub`'s seed
+    SEED with rows spread: the int8 model against bf16 (quant.check_errors
+    on the encoder-only logits, quant.check_reads on a read's), its two
+    planted faults, its int8 products and kernel launches a read, and the
+    encoder times at B = TIMED_BATCH. Adds to `info`."""
+    from experiments.torch_encoder_kernel_bench import cuda_median_ms
+    from parseq_tpu_torch import hub
+    from parseq_tpu_torch.models.vit import VisionTransformer
+    from parseq_tpu_torch.ops import ar_kernel, attention, quant
+
+    bundle = getattr(hub, name)(seed=SEED)
+    module = bundle.module
+    depth = len((module.encoder if name == 'parseq' else module).blocks)
+    quant.spread_rows(module, SEED)
+    images = torch.from_numpy(rng.uniform(-1, 1, (INT8_IMAGES, *bundle.img_size, 3)).astype(
+        np.float32)).cuda()
+    ref = quant.check_logits(module, images, torch.bfloat16)
+    qb = quant.quantize_bundle(bundle)
+    with quant.count_int_mm() as count:
+        got = quant.check_logits(qb.module, images, torch.bfloat16)
+    limit = quant.CHECK_LIMITS[name]
+    rel, n_conf, agree, passes = quant.check_errors(got, ref, limit)
+    if not passes or n_conf == 0 or count.calls != 4 * depth:
+        raise AssertionError(f'int8 {name}: relative error {rel:.4e} (limit {limit}), '
+                             f'greedy picks equal at the {n_conf} positions whose margin '
+                             f'exceeds it: {agree}; '
+                             f'int8 products a forward {count.calls} (4 x {depth} expected)')
+    faulty = quant.planted_fault(module, name, 'input_channel_scales')
+    rel_f, *_, passes_f = quant.check_errors(
+        quant.check_logits(faulty, images, torch.bfloat16), ref, limit)
+    partial = quant.planted_fault(module, name, 'fc2_unquantized')
+    with quant.count_int_mm() as partial_count:
+        quant.check_logits(partial, images, torch.bfloat16)
+    if passes_f or partial_count.calls == 4 * depth:
+        raise AssertionError(f'int8 {name}: a planted fault passes: per-input-channel codes '
+                             f'{rel_f:.4e} (passes {passes_f}); last fc2 unquantized: '
+                             f'{partial_count.calls} int8 products')
+    del faulty, partial
+    ar_kernel.launches = attention.launches = 0
+    x = images.cpu().numpy()
+    with quant.count_int_mm() as count:
+        labels, confs = qb.read(x)
+    launches = {'B1': ar_kernel.launches, 'B2': attention.launches}
+    want = {'B1': 1, 'B2': 0} if name == 'parseq' else {'B1': 0, 'B2': depth}
+    charset = set(bundle.tokenizer.charset)
+    if launches != want or count.calls != 4 * depth or not all(
+            set(t) <= charset and 0.0 < c <= 1.0 for t, c in zip(labels, confs)):
+        raise AssertionError(f'int8 {name} read: launches {launches} ({want} expected), '
+                             f'int8 products {count.calls}, {labels} {confs}')
+    info['b1'] += launches['B1']
+    info['b2'] += launches['B2']
+    bf16_labels = bundle.read(x)[0]
+    read_conf, read_agree, decided = quant.check_reads(qb(x), bundle(x),
+                                                       bundle.tokenizer.eos_id)
+    wrong = [(a, b) for a, b, d in zip(labels, bf16_labels, decided.tolist())
+             if d and a != b]
+    if not read_agree or read_conf == 0 or wrong:
+        raise AssertionError(f'int8 {name} reads vs bf16: picks equal at the {read_conf} '
+                             f'positions whose margin exceeds their image\'s error: '
+                             f'{read_agree}; decided reads that '
+                             f'differ: {wrong}')
+    xt = torch.from_numpy(rng.uniform(-1, 1, (TIMED_BATCH, *bundle.img_size, 3)).astype(
+        np.float32)).cuda().to(torch.bfloat16)
+    with torch.inference_mode():
+        enc = (lambda m: m.encode(xt)) if name == 'parseq' else (
+            lambda m: VisionTransformer.forward(m, xt))
+        enc_ms = {k: cuda_median_ms(lambda: enc(m)) for k, m in
+                  (('bf16', module), ('int8', qb.module))}
+    info[name] = {'rel_err': rel, 'fault_rel_err': rel_f, 'int_mm_a_forward': count.calls,
+                  'encoder_ms_b256': enc_ms, 'read_positions_decided': read_conf,
+                  'reads_decided': int(decided.sum()), 'reads_equal_bf16': sum(
+                      a == b for a, b in zip(labels, bf16_labels)),
+                  'distinct_reads': len(set(bf16_labels))}
+    print(f'int8 {name} on cuda (rows spread by <= {quant.CHECK_SPREAD}x): '
+          f'{"NAR " if name == "parseq" else ""}logits vs bf16 '
+          f'{rel:.4e} of max|bf16| (limit {limit}), greedy picks equal at the {n_conf} '
+          f'of {ref.shape[0] * ref.shape[1]} positions whose margin exceeds it; planted '
+          f'faults fail (per-input-channel codes {rel_f:.4e}; the last fc2 unquantized: '
+          f'{partial_count.calls} int8 products, not {4 * depth}); read of {len(labels)} '
+          f'images: {launches}, {count.calls} int8 products, {labels[:3]} '
+          f'({info[name]["distinct_reads"]} distinct bf16 reads); its logits: picks equal at '
+          f'the {read_conf} positions whose margin exceeds their image\'s error, '
+          f'{info[name]["reads_decided"]} reads decided through EOS and equal to bf16\'s, '
+          f'{info[name]["reads_equal_bf16"]} of {len(labels)} equal in all; encoder '
+          f'B={TIMED_BATCH} [{card}]: bf16 {enc_ms["bf16"]:.4f} ms, int8 '
+          f'{enc_ms["int8"]:.4f} ms')
+    del bundle, qb, module
 
 
 if __name__ == '__main__':

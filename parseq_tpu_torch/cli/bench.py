@@ -10,11 +10,15 @@ max label length 1..25 in steps of 4, as the reference's `+range=true`.
 Defaults come from configs/bench.yaml. On the card it first prints the
 card's name and power limit, as nvidia-smi reports them. `params_M` counts
 the module's parameters, not its buffers: for the batch-norm families it is
-below the JAX CLI's, which also counts the running statistics.
+below the JAX CLI's, which also counts the running statistics. With
+`--int8` (the ViT encoder's products quantized, ops/quant.py) it counts the
+int8 codes, scales and biases, as the JAX CLI counts its quantized tree;
+the MACs of an int8 run equal the bf16 run's (utils/flops.py counts
+`_int_mm`).
 
 Usage:
     python -m parseq_tpu_torch.cli.bench --model parseq [--batch_size 1] [--sweep]
-        [--device cuda|cpu] [--dtype bfloat16|float32] [--profile DIR]
+        [--int8] [--device cuda|cpu] [--dtype bfloat16|float32] [--profile DIR]
         [model_override:type=value ...]
 
 The default device is cuda; with no GPU the command fails unless --device
@@ -36,6 +40,7 @@ import torch
 
 from parseq_tpu_torch.models.parseq import PARSeq
 from parseq_tpu_torch.ops import attention
+from parseq_tpu_torch.ops.quant import Int8Linear, quantize_bundle
 from parseq_tpu_torch.utils.config import CONFIG_ROOT, _load, parse_model_args
 from parseq_tpu_torch.utils.flops import count_flops
 from parseq_tpu_torch.utils.registry import create_model
@@ -86,9 +91,11 @@ def per_image_flops(model, images):
 
 
 def bench_model(name, batch_size=1, iters=8, trials=7, device='cuda', dtype=torch.bfloat16,
-                **kwargs):
+                int8=False, **kwargs):
     device = torch.device(device)
     model = create_model(name, device=device, dtype=dtype, **kwargs)
+    if int8:
+        model = quantize_bundle(model)
     h, w = model.img_size
     gen = torch.Generator(device=device).manual_seed(0)
     batches = [torch.rand((batch_size, h, w, 3), generator=gen, device=device)
@@ -99,7 +106,9 @@ def bench_model(name, batch_size=1, iters=8, trials=7, device='cuda', dtype=torc
     if device.type == 'cuda':
         torch.cuda.synchronize()
     med, iqr = time_forward(model, batches[:iters], trials, device)
-    n_params = sum(p.numel() for p in model.module.parameters())
+    n_params = sum(p.numel() for p in model.module.parameters()) + sum(
+        b.numel() for m in model.module.modules() if isinstance(m, Int8Linear)
+        for b in m.buffers(recurse=False))
     return {
         'model': model.name,
         'params_M': round(n_params / 1e6, 3),
@@ -132,7 +141,7 @@ def main(argv=None):
     ap.add_argument('--sweep', action='store_true', default=bool(d.get('sweep', False)),
                     help='sweep label length 1..25 step 4')
     ap.add_argument('--int8', action='store_true',
-                    help='int8 encoder serving path (not ported: ROADMAP queue A item 17)')
+                    help='int8 encoder serving path (ViT-backed models)')
     ap.add_argument('--profile', default=None, metavar='DIR',
                     help='write a torch.profiler trace of the runs to DIR/trace.json')
     ap.add_argument('--device', default='cuda', help='cuda (default) or cpu')
@@ -140,8 +149,6 @@ def main(argv=None):
     args, unknown = ap.parse_known_args(argv)
     kwargs = parse_model_args(unknown)
 
-    if args.int8:
-        raise NotImplementedError('--int8 is not ported to PyTorch yet (ROADMAP queue A item 17)')
     device = torch.device(args.device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         ap.error('no CUDA device is available; pass --device cpu to run on the CPU')
@@ -160,7 +167,7 @@ def main(argv=None):
         for L in lengths:
             extra = {} if L is None else {'max_label_length': L}
             r = bench_model(args.model, args.batch_size, args.iters, args.trials, device,
-                            DTYPES[args.dtype], **extra, **kwargs)
+                            DTYPES[args.dtype], args.int8, **extra, **kwargs)
             if L is not None:
                 r['max_label_length'] = L
             print(json.dumps(r), flush=True)

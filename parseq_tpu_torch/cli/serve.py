@@ -2,11 +2,12 @@
 InferenceServer (counterpart of parseq_tpu/cli/serve.py). Stdlib only:
 
     python -m parseq_tpu_torch.cli.serve <checkpoint> [--port 8500] [--host 127.0.0.1]
-        [--max_batch 32] [--max_wait_ms 2.0] [--no_warmup] [--device cuda|cpu]
+        [--max_batch 32] [--max_wait_ms 2.0] [--int8] [--no_warmup] [--device cuda|cpu]
         [model_override:type=value ...]
 
 `checkpoint` is a reference PyTorch .pt or .ckpt file, a checkpoint the
-port's trainer wrote, or `pretrained=<experiment>` (utils/pretrained.py).
+port's trainer wrote, a JAX package checkpoint, or `pretrained=<experiment>`
+(utils/pretrained.py); `--int8` serves with the ViT encoder quantized.
 The default device is cuda; with no GPU the command fails unless --device
 cpu is given.
 
@@ -16,14 +17,14 @@ Endpoints:
                            -> {"text": ..., "confidence": ...}
 
 Concurrent requests are coalesced into batches of a power-of-two ladder
-(see serve/server.py). Images are decoded and resized with PIL in the
-handler's thread.
+(see serve/server.py). Images are decoded and resized in the handler's
+thread: JPEGs by the native decoder (data/native/jpeg_decode.cpp), others by
+PIL.
 """
 
 from __future__ import annotations
 
 import argparse
-import io
 import json
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -34,9 +35,7 @@ from parseq_tpu_torch.utils.registry import load_from_checkpoint
 
 
 def make_handler(server, bundle):
-    from PIL import Image
-
-    from parseq_tpu_torch.data.transforms import preprocess_pil_u8
+    from parseq_tpu_torch.data.transforms import decode_u8
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *args):  # quiet
@@ -62,8 +61,9 @@ def make_handler(server, bundle):
                 return
             try:
                 n = int(self.headers.get('Content-Length', 0))
-                with Image.open(io.BytesIO(self.rfile.read(n))) as img:
-                    arr = preprocess_pil_u8(img, bundle.img_size)
+                # JPEG: native decode+resize (bit-identical to the PIL
+                # path, data/native/jpeg_decode.cpp); anything else via PIL.
+                arr = decode_u8(self.rfile.read(n), bundle.img_size)
             except Exception as e:  # noqa: BLE001 - bad input -> client error
                 self._json(400, {'error': f'{type(e).__name__}: {e}'})
                 return
@@ -80,24 +80,27 @@ def make_handler(server, bundle):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument('checkpoint', help='PyTorch .pt / .ckpt file or pretrained=<experiment>')
+    ap.add_argument('checkpoint',
+                    help='PyTorch .pt / .ckpt file, JAX .ckpt or pretrained=<experiment>')
     ap.add_argument('--port', type=int, default=8500)
     ap.add_argument('--host', default='127.0.0.1')
     ap.add_argument('--max_batch', type=int, default=32)
     ap.add_argument('--max_wait_ms', type=float, default=2.0)
     ap.add_argument('--int8', action='store_true',
-                    help='int8 encoder serving path (not ported: ROADMAP queue A item 17)')
+                    help='int8 encoder serving path (ViT-backed models)')
     ap.add_argument('--no_warmup', action='store_true')
     ap.add_argument('--device', default='cuda', help='cuda (default) or cpu')
     ap.add_argument('model_args', nargs='*', help='Model overrides key:type=value')
     args = ap.parse_args(argv)
 
-    if args.int8:
-        raise NotImplementedError('--int8 is not ported to PyTorch yet (ROADMAP queue A item 17)')
     if torch.device(args.device).type == 'cuda' and not torch.cuda.is_available():
         ap.error('no CUDA device is available; pass --device cpu to run on the CPU')
     bundle = load_from_checkpoint(args.checkpoint, device=args.device,
                                   **parse_model_args(args.model_args))
+    if args.int8:
+        from parseq_tpu_torch.ops.quant import quantize_bundle
+
+        bundle = quantize_bundle(bundle)
 
     from parseq_tpu_torch.serve import InferenceServer
 

@@ -3,11 +3,13 @@ parseq_tpu/cli/test.py; reference test.py).
 
 Usage:
     python -m parseq_tpu_torch.cli.test <checkpoint> [--data_root data]
-        [--cased] [--punctuation] [--new] [--rotation N] [--device cuda|cpu]
+        [--cased] [--punctuation] [--new] [--rotation N] [--int8] [--device cuda|cpu]
         [model_override:type=value ...]
 
 `checkpoint` is what cli/read.py takes: a reference PyTorch .pt or .ckpt
-file, a checkpoint the port's trainer wrote, or `pretrained=<experiment>`.
+file, a checkpoint the port's trainer wrote, a JAX package checkpoint, or
+`pretrained=<experiment>`; `--int8` quantizes the ViT encoder after the
+load (counted in the load time).
 Prints the Benchmark (Subset) and Benchmark tables (and New with --new)
 and writes them to `<checkpoint>.log.txt`; on stderr, the images read per
 second over all sets, the time spent waiting on the loader (its first batch
@@ -65,13 +67,11 @@ def main(argv=None):
     ap.add_argument('--new', action='store_true', help='Include new benchmark datasets')
     ap.add_argument('--rotation', type=int, default=0)
     ap.add_argument('--int8', action='store_true',
-                    help='int8 encoder serving path (not ported: ROADMAP queue A item 17)')
+                    help='int8 encoder serving path (ViT-backed models)')
     ap.add_argument('--device', default='cuda', help='cuda (default) or cpu')
     args, unknown = ap.parse_known_args(argv)
     kwargs = parse_model_args(unknown)
 
-    if args.int8:
-        raise NotImplementedError('--int8 is not ported to PyTorch yet (ROADMAP queue A item 17)')
     if torch.device(args.device).type == 'cuda' and not torch.cuda.is_available():
         ap.error('no CUDA device is available; pass --device cpu to run on the CPU')
     if (os.cpu_count() or 1) <= 1 and args.num_workers > 0:
@@ -89,6 +89,10 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     model = load_from_checkpoint(args.checkpoint, device=args.device, **kwargs)
+    if args.int8:
+        from parseq_tpu_torch.ops.quant import quantize_bundle
+
+        model = quantize_bundle(model)
     load_s = time.perf_counter() - t0
     dm = data_module.SceneTextDataModule(
         args.data_root, '_unused_', model.img_size,

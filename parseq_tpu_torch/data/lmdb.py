@@ -64,9 +64,19 @@ class LmdbError(RuntimeError):
 
 
 def open_reader(path):
-    """Open an LMDB for point lookups with the pure-Python mmap reader (the
-    JAX package's native C++ reader is not ported yet, ROADMAP queue A).
-    Exposes get()/len()/close()/context-manager."""
+    """Open an LMDB for point lookups: the native C++ reader
+    (data/native/lmdb_reader.cpp) when g++ is there, else the pure-Python
+    mmap reader, which also opens a file the native reader refuses (and
+    names what is wrong with it). Both expose get()/len()/close()/context-
+    manager."""
+    from parseq_tpu_torch.data.native import NativeLmdbReader, load
+
+    lib = load()
+    if lib is not None:
+        try:
+            return NativeLmdbReader(path, lib)
+        except OSError:
+            pass
     return LmdbReader(path)
 
 

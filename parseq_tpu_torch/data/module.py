@@ -25,9 +25,11 @@ def get_transform(img_size, augment=False, rotation=0, u8=False):
     ``u8=True``: return resized uint8 instead of f32 and let the device do the
     identical normalize (train/steps.py:normalize_u8) — 4x less loader IPC
     and H2D traffic. Datasets pass RAW BYTES (transform.accepts_bytes) so
-    decode happens inside the transform and PIL ``draft`` engages. Decoding
-    is PIL's (the JAX package's native JPEG decoder, bit-identical to PIL,
-    is not ported yet: ROADMAP queue A).
+    decode happens inside the transform: on the eval u8 path a JPEG goes
+    through the native fused decode+resize (data/native/jpeg_decode.cpp,
+    bit-identical to the PIL path), with augmentation through the native
+    full-resolution decode; anything else (PNG, CMYK, no native decoder)
+    through PIL, where ``draft`` engages.
     """
     aug = None
     if augment:
@@ -37,15 +39,24 @@ def get_transform(img_size, augment=False, rotation=0, u8=False):
 
     def transform(img):
         if isinstance(img, (bytes, memoryview)):
+            from parseq_tpu_torch.data.native import jpeg_decode, jpeg_decode_resize
+
+            if u8 and aug is None and rotation == 0:
+                arr = jpeg_decode_resize(img, img_size)
+                if arr is not None:
+                    return arr
             import io
 
             from PIL import Image
 
-            img = Image.open(io.BytesIO(bytes(img)))
             if aug is not None:
                 # augment needs the full-resolution RGB image (reference
                 # transform order, module.py:68-82)
-                img = img.convert('RGB')
+                arr = jpeg_decode(img)
+                img = (Image.fromarray(arr) if arr is not None
+                       else Image.open(io.BytesIO(bytes(img))).convert('RGB'))
+            else:
+                img = Image.open(io.BytesIO(bytes(img)))
         if aug is not None:
             img = aug(img)
         if u8:

@@ -49,6 +49,24 @@ def preprocess_pil_u8(img, img_size=(32, 128), rotation: int = 0,
     return np.asarray(img, dtype=np.uint8)
 
 
+def decode_u8(data, img_size=(32, 128)) -> np.ndarray:
+    """Encoded image bytes -> (H, W, 3) uint8 resized to img_size: a JPEG
+    through the native decode+resize (data/native/jpeg_decode.cpp,
+    bit-identical to this path through PIL), anything else through PIL and
+    preprocess_pil_u8."""
+    import io
+
+    from PIL import Image
+
+    from parseq_tpu_torch.data.native import jpeg_decode_resize
+
+    arr = jpeg_decode_resize(data, img_size)
+    if arr is not None:
+        return arr
+    with Image.open(io.BytesIO(bytes(data))) as img:
+        return preprocess_pil_u8(img, img_size)
+
+
 def load_image(path, img_size=(32, 128), rotation: int = 0) -> np.ndarray:
     from PIL import Image
 

@@ -41,7 +41,7 @@ import math
 import torch
 
 from parseq_tpu_torch.kernels.build import CSRC, load_library
-from parseq_tpu_torch.ops import flash_bwd, layers
+from parseq_tpu_torch.ops import flash_bwd, layers, quant
 
 # Kernel gate, as in the JAX package (its value was measured on a TPU; the
 # port keeps it until its own gate is measured on the H100).
@@ -303,12 +303,17 @@ def encoder_self_attention(x, in_weight, in_bias, out_weight, out_bias, num_head
     below it, under autograd, it feeds attention_flashbwd (kernel B4 in the
     backward) when the kernel takes the shape. With attention-probability
     dropout (dropout_rate > 0 and a generator `rng`) it is layers.mha with
-    that dropout: neither kernel drops probabilities."""
+    that dropout: neither kernel drops probabilities. With int8 weights
+    (ops/quant.py) the packed q|k|v projection is one int8 product at every
+    length, feeding B2 at L >= KERNEL_MIN_LEN as the bf16 one does."""
     if dropout_rate > 0.0 and rng is not None:
         return layers.mha(x, x, x, in_weight, in_bias, out_weight, out_bias, num_heads=num_heads,
                           dropout_rate=dropout_rate, rng=rng)
     B, L, D = x.shape
     if L < KERNEL_MIN_LEN:
+        if quant.is_quantized(in_weight):  # int8: one packed product, then mha's attention
+            o = layers.packed_self_attention(layers.linear(x, in_weight, in_bias), num_heads)
+            return layers.linear(o, out_weight, out_bias)
         training = torch.is_grad_enabled() and (x.requires_grad or in_weight.requires_grad)
         if training and _FLASH_BWD and flash_bwd.kernel_takes(L, D // num_heads):
             qkv = layers.linear(x, in_weight, in_bias)

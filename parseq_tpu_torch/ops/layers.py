@@ -20,11 +20,16 @@ import math
 import torch
 import torch.nn.functional as F
 
+from parseq_tpu_torch.ops import quant
+
 NEG_INF = -1e9  # finite "minus infinity": avoids NaN rows in fully-masked softmax
 
 
 def linear(x, weight, bias=None):
-    """y = x @ weight.T + bias, in x's dtype."""
+    """y = x @ weight.T + bias, in x's dtype. An Int8Weight (ops/quant.py,
+    the int8 serving path) runs quant.int8_linear instead."""
+    if isinstance(weight, quant.Int8Weight):
+        return quant.int8_linear(x, weight, bias)
     y = x @ weight.to(x.dtype).t()
     if bias is not None:
         y = y + bias.to(x.dtype)
@@ -136,6 +141,13 @@ def mha(q, k, v, in_weight, in_bias, out_weight, out_bias, *, num_heads,
 
     out = attention(qh, kh, vh, bias=bias, dropout_rate=dropout_rate, rng=rng)
     return linear(_merge_heads(out), out_weight, out_bias)
+
+
+def packed_self_attention(qkv, num_heads):
+    """Unmasked attention of a packed (..., L, 3D) q|k|v projection: mha's
+    math after its in-projection."""
+    q, k, v = (_split_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
+    return _merge_heads(attention(q, k, v))
 
 
 def mlp(x, fc1_weight, fc1_bias, fc2_weight, fc2_bias, *, dropout_rate=0.0, rng=None):

@@ -35,10 +35,12 @@ import threading
 import time
 from concurrent.futures import Future
 from dataclasses import dataclass, field
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from parseq_tpu_torch.data.transforms import decode_u8
 from parseq_tpu_torch.train.evaluate import _device_post
 from parseq_tpu_torch.train.steps import normalize_u8
 
@@ -121,16 +123,11 @@ class InferenceServer:
         return req.future
 
     def read_files(self, paths):
-        """Decode with PIL, resize to the model's size, submit; returns the
-        results in order."""
-        from PIL import Image
-
-        from parseq_tpu_torch.data.transforms import preprocess_pil_u8
-
-        futures = []
-        for p in paths:
-            with Image.open(p) as img:
-                futures.append(self.submit(preprocess_pil_u8(img, self.bundle.img_size)))
+        """Decode, resize to the model's size, submit; returns the results in
+        order. JPEGs go through the native decode+resize (bit-identical to
+        the PIL path, data/native/jpeg_decode.cpp), anything else via PIL."""
+        futures = [self.submit(decode_u8(Path(p).read_bytes(), self.bundle.img_size))
+                   for p in paths]
         return [f.result() for f in futures]
 
     # -- internals ----------------------------------------------------------

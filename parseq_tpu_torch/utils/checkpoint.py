@@ -3,7 +3,11 @@
 One `torch.save` file per checkpoint: the model's reference-schema
 state_dict (CPU tensors), the model config and training metadata as JSON
 strings. `utils.registry.load_from_checkpoint` reads these files (`.ckpt`).
-The JAX package's msgpack `.ckpt` format is not read here (ROADMAP).
+
+`load_jax_checkpoint` reads the JAX package's msgpack `.ckpt`
+(parseq_tpu/utils/checkpoint.py:save_checkpoint: the numpy param tree,
+`config` and `meta` as JSON) through the port's own decoder
+(utils/msgpack.py); the registry converts the tree to a state_dict.
 """
 
 from __future__ import annotations
@@ -69,3 +73,16 @@ def save_topk(out_dir, step, metric_value, state_dict, config=None, meta=None, k
     for _, p in cands[k:]:
         p.unlink()
     return cands[0][1] if cands else out_dir / 'last.ckpt'
+
+
+def load_jax_checkpoint(path):
+    """A JAX package checkpoint -> (param tree, config_dict or None,
+    meta_dict). Leaves are numpy arrays (torch.bfloat16 tensors for bf16)."""
+    from parseq_tpu_torch.utils.msgpack import restore
+
+    payload = restore(Path(path).read_bytes())
+    if not (isinstance(payload, dict) and 'params' in payload):
+        raise ValueError(f'{path}: a msgpack file, but not a JAX package checkpoint '
+                         f'(top-level keys {sorted(payload) if isinstance(payload, dict) else []})')
+    config = json.loads(payload['config']) if payload.get('config') else None
+    return payload['params'], config, json.loads(payload.get('meta') or '{}')

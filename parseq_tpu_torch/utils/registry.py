@@ -5,7 +5,8 @@ TRBC and ABINet families).
 Configs are composed from the repository's `configs/` groups by the port's
 `utils/config.py`. Checkpoints: reference PyTorch `.pt` state_dicts load
 with `load_state_dict(strict=True)`; the port's own training checkpoints
-(`utils/checkpoint.py`, `.ckpt`) load with their stored model config.
+(`utils/checkpoint.py`, `.ckpt`) and the JAX package's msgpack `.ckpt` load
+with their stored model config.
 """
 
 from __future__ import annotations
@@ -262,16 +263,26 @@ def load_from_checkpoint(path: str, *, dtype=torch.bfloat16, device='cuda', conf
       builds the model; or
     - any other PyTorch file (`.pt` or `.ckpt`), a reference state_dict:
       the model family from the file name, a Lightning 'state_dict' wrapper
-      and 'model.' prefixes stripped."""
+      and 'model.' prefixes stripped; or
+    - a JAX package checkpoint (msgpack, parseq_tpu/utils/checkpoint.py):
+      its stored model config builds the model and its param tree is
+      converted by the family's utils/convert.py function.
+    Both packages write `.ckpt`, so the format is told by the file's first
+    bytes, never by its extension."""
     if path.startswith('pretrained='):
         from parseq_tpu_torch.utils.pretrained import load_pretrained
 
         return load_pretrained(path.split('=', 1)[1], dtype=dtype, device=device,
                                config_root=config_root, **kwargs)
-    if not (path.endswith('.pt') or _looks_like_torch(path)):
-        raise NotImplementedError(
-            f'{path}: the port loads its own .ckpt checkpoints and reference PyTorch .pt / .ckpt '
-            'files; the JAX package\'s msgpack checkpoints are queued in ROADMAP.md')
+    with open(path, 'rb') as f:
+        head = f.read(4)
+    if not _looks_like_torch(head):
+        from parseq_tpu_torch.utils.msgpack import looks_like_msgpack_map
+
+        if looks_like_msgpack_map(head):
+            return _from_jax(path, dtype=dtype, device=device, **kwargs)
+        raise ValueError(f'{path}: neither a torch.save file nor a JAX package msgpack '
+                         f'checkpoint (first bytes {head!r})')
     obj = torch.load(path, map_location='cpu', weights_only=True)
     if _is_port_checkpoint(obj):
         from parseq_tpu_torch.utils.checkpoint import read_payload
@@ -299,6 +310,58 @@ def _from_reference(obj, experiment, *, dtype=torch.bfloat16, device='cuda', con
     return _bundle(experiment, model_cfg, dtype=dtype, device=device, state_dict=obj)
 
 
+def _as_numpy(tree):
+    """A JAX checkpoint's param tree with every leaf a numpy array (bf16
+    leaves, torch tensors from utils/msgpack.py, widened to float32)."""
+    if isinstance(tree, dict):
+        return {k: _as_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_as_numpy(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.float().numpy()
+    return np.asarray(tree)
+
+
+def _state_dict_from_jax_tree(family, params, model_cfg):
+    """A JAX package param tree of `family` -> the port's state_dict. The CNN
+    families and ABINet were saved as {'params', 'stats'}, PARSeq and ViTSTR
+    as bare params (parseq_tpu/train/loop.py:_maybe_flatten)."""
+    from parseq_tpu_torch.utils import convert
+
+    params = _as_numpy(params)
+    tree, stats = ((params['params'], params['stats'])
+                   if isinstance(params, dict) and set(params) == {'params', 'stats'}
+                   else (params, None))
+    if (stats is None) != (family in ('parseq', 'vitstr')):
+        raise InvalidModelError(f'a {family} JAX checkpoint whose tree is '
+                                f'{"bare params" if stats is None else "params and stats"}')
+    if family == 'parseq':
+        return convert.state_dict_from_jax(tree, tuple(model_cfg.get('patch_size', (4, 8))))
+    if family == 'vitstr':
+        return convert.vitstr_state_dict_from_jax(tree,
+                                                  tuple(model_cfg.get('patch_size', (16, 16))))
+    if family == 'abinet':
+        return convert.abinet_state_dict_from_jax(
+            tree, stats, img_size=tuple(model_cfg.get('img_size', (32, 128))),
+            max_label_length=model_cfg.get('max_label_length', 25))
+    if family == 'crnn':
+        return convert.crnn_state_dict_from_jax(tree, stats)
+    return convert.trba_state_dict_from_jax(tree, stats, use_ctc=family == 'trbc')
+
+
+def _from_jax(path, *, dtype=torch.bfloat16, device='cuda', **kwargs):
+    """A JAX package checkpoint: its meta's model config (updated by
+    `kwargs`) builds the model, its params converted to a state_dict."""
+    from parseq_tpu_torch.utils.checkpoint import load_jax_checkpoint
+
+    params, _, meta = load_jax_checkpoint(path)
+    model_cfg = dict(meta.get('model_config') or {})
+    model_cfg.update(kwargs)
+    name = meta.get('name') or model_cfg.get('name') or 'parseq'
+    sd = _state_dict_from_jax_tree(_family(name), params, model_cfg)
+    return _bundle(name, model_cfg, dtype=dtype, device=device, state_dict=sd)
+
+
 def _is_port_checkpoint(obj) -> bool:
     """A payload of utils/checkpoint.py: 'state_dict', 'config' and 'meta',
     the last two JSON strings (a Lightning file's 'state_dict' has no such
@@ -307,12 +370,9 @@ def _is_port_checkpoint(obj) -> bool:
             and isinstance(obj['config'], str) and isinstance(obj['meta'], str))
 
 
-def _looks_like_torch(path: str) -> bool:
-    """A torch.save file: a zip archive, or the legacy pickle's protocol 2
-    header (parseq_tpu/utils/registry.py:_looks_like_torch)."""
-    try:
-        with open(path, 'rb') as f:
-            magic = f.read(4)
-        return magic[:2] == b'PK' or magic == b'\x80\x02'.ljust(4, b'\x00')[:4]
-    except OSError:
-        return False
+def _looks_like_torch(head: bytes) -> bool:
+    """A torch.save file by its first bytes: a zip archive, or the legacy
+    pickle's protocol 2 header b'\\x80\\x02' (the JAX package's check,
+    parseq_tpu/utils/registry.py:_looks_like_torch, compares four bytes to
+    b'\\x80\\x02\\x00\\x00', which no legacy file begins with)."""
+    return head[:2] in (b'PK', b'\x80\x02')

@@ -169,8 +169,13 @@ def test_test_cli_tables_match_jax_cli(tmp_path, monkeypatch):
 
 
 def test_test_cli_refuses_int8_and_cuda_without_a_card(tmp_path):
-    with pytest.raises(NotImplementedError, match='A item 17'):
-        test_cli.main([str(tmp_path / 'parseq.pt'), '--int8', '--device', 'cpu'])
+    # --int8 quantizes a ViT encoder (ops/quant.py); CRNN has none, and the
+    # JAX CLI refuses it alike
+    crnn = registry.create_model('crnn', device='cpu', hidden_size=16)
+    torch.save(crnn.module.state_dict(), tmp_path / 'crnn.pt')
+    with pytest.raises(ValueError, match='ViT'):
+        test_cli.main([str(tmp_path / 'crnn.pt'), '--int8', '--device', 'cpu',
+                       'hidden_size:int=16'])
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit):
             test_cli.main([str(tmp_path / 'parseq.pt')])

@@ -317,9 +317,14 @@ def test_read_files(bundle, tmp_path):
     np.testing.assert_allclose([c for _, c in got], confs, rtol=0, atol=CONF_ATOL)
 
 
-def test_serve_cli_needs_a_card_or_device_cpu(monkeypatch):
+def test_serve_cli_needs_a_card_or_device_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(SystemExit):
         serve_cli.main(['model.pt'])
-    with pytest.raises(NotImplementedError, match='item 17'):
-        serve_cli.main(['model.pt', '--int8', '--device', 'cpu'])
+    # --int8 quantizes a ViT encoder (ops/quant.py); CRNN has none, and the
+    # JAX CLI refuses it alike
+    crnn = registry.create_model('crnn', device='cpu', hidden_size=16)
+    torch.save(crnn.module.state_dict(), tmp_path / 'crnn.pt')
+    with pytest.raises(ValueError, match='ViT'):
+        serve_cli.main([str(tmp_path / 'crnn.pt'), '--int8', '--device', 'cpu',
+                        'hidden_size:int=16'])
