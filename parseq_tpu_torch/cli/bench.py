@@ -41,6 +41,7 @@ import torch
 from parseq_tpu_torch.models.parseq import PARSeq
 from parseq_tpu_torch.ops import attention
 from parseq_tpu_torch.ops.quant import Int8Linear, quantize_bundle
+from parseq_tpu_torch.utils import trace
 from parseq_tpu_torch.utils.config import CONFIG_ROOT, _load, parse_model_args
 from parseq_tpu_torch.utils.flops import count_flops
 from parseq_tpu_torch.utils.registry import create_model
@@ -143,7 +144,8 @@ def main(argv=None):
     ap.add_argument('--int8', action='store_true',
                     help='int8 encoder serving path (ViT-backed models)')
     ap.add_argument('--profile', default=None, metavar='DIR',
-                    help='write a torch.profiler trace of the runs to DIR/trace.json')
+                    help='write a torch.profiler trace of the runs, with the program\'s '
+                         'spans, to DIR/trace.json')
     ap.add_argument('--device', default='cuda', help='cuda (default) or cpu')
     ap.add_argument('--dtype', default='bfloat16', choices=sorted(DTYPES))
     args, unknown = ap.parse_known_args(argv)
@@ -174,7 +176,10 @@ def main(argv=None):
             results.append(r)
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.profile, 'trace.json'))
+        path = os.path.join(args.profile, 'trace.json')
+        prof.export_chrome_trace(path)
+        trace.merge_chrome(path)  # the program's spans, a track of their own
+        trace.clear()
     return results
 
 

@@ -35,25 +35,9 @@ import torch
 
 from parseq_tpu_torch.data import module as data_module
 from parseq_tpu_torch.train.evaluate import eval_dataset, print_results_table
+from parseq_tpu_torch.utils import trace
 from parseq_tpu_torch.utils.config import parse_model_args
 from parseq_tpu_torch.utils.registry import load_from_checkpoint
-
-
-def _timed(loader, timing):
-    """Iterate `loader`, adding the time blocked in it to timing['loader_s']
-    and, for its first batch, to timing['first_batch_s'] as well."""
-    it, first = iter(loader), True
-    while True:
-        t0 = time.perf_counter()
-        item = next(it, None)
-        waited = time.perf_counter() - t0
-        timing['loader_s'] += waited
-        if first:
-            timing['first_batch_s'] += waited
-            first = False
-        if item is None:
-            return
-        yield item
 
 
 def main(argv=None):
@@ -111,7 +95,14 @@ def main(argv=None):
     t0 = time.perf_counter()
     for name, loader in dm.test_dataloaders(test_set).items():
         print(f'Evaluating {name}...', file=sys.stderr)
-        results[name] = eval_dataset(model, _timed(loader, timing), name)
+        trace.clear()
+        with trace.recording():
+            results[name] = eval_dataset(model, loader, name)
+        # eval_dataset's eval.next spans: the time blocked on the loader
+        waits = [s['end_ns'] - s['start_ns'] for s in trace.spans() if s['name'] == 'eval.next']
+        timing['loader_s'] += sum(waits) * 1e-9
+        timing['first_batch_s'] += waits[0] * 1e-9
+    trace.clear()
     timing['eval_s'] = time.perf_counter() - t0
     timing['images'] = sum(r.num_samples for r in results.values())
     print(f"Read {timing['images']} images in {timing['eval_s']:.2f} s "

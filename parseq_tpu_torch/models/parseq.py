@@ -34,6 +34,7 @@ from torch import nn
 from parseq_tpu_torch.models.vit import ViTConfig, VisionTransformer
 from parseq_tpu_torch.ops import layers
 from parseq_tpu_torch.ops.layers import NEG_INF, dropout, layer_norm, linear
+from parseq_tpu_torch.utils import trace
 
 
 @dataclass(frozen=True)
@@ -337,7 +338,8 @@ class PARSeq(nn.Module):
         else:
             logits = self.nar_decode(memory, dtype)
         if cfg.refine_iters:
-            logits = self.refine(memory, logits, dtype)
+            with trace.span('parseq.refine'):
+                logits = self.refine(memory, logits, dtype)
         return logits.float()
 
     # -- training ------------------------------------------------------------

@@ -24,6 +24,7 @@ from torch import nn
 
 from parseq_tpu_torch.ops.attention import encoder_self_attention
 from parseq_tpu_torch.ops.layers import layer_norm, mlp
+from parseq_tpu_torch.utils import trace
 
 
 @dataclass(frozen=True)
@@ -114,12 +115,14 @@ class VisionTransformer(nn.Module):
         return out + proj.bias.to(x.dtype)
 
     def forward(self, images):
-        """images (B, H, W, C) -> tokens (B, N[+1], D), final LN applied."""
-        x = self.patch_embedding(images)
-        if self.class_token:
-            cls = self.cls_token.to(x.dtype).expand(x.shape[0], 1, x.shape[-1])
-            x = torch.cat([cls, x], dim=1)
-        x = x + self.pos_embed.to(x.dtype)
-        for blk in self.blocks:
-            x = blk(x)
-        return layer_norm(x, self.norm.weight, self.norm.bias)
+        """images (B, H, W, C) -> tokens (B, N[+1], D), final LN applied;
+        the span vit.encoder, with device events."""
+        with trace.span('vit.encoder', device=True, rows=images.shape[0]):
+            x = self.patch_embedding(images)
+            if self.class_token:
+                cls = self.cls_token.to(x.dtype).expand(x.shape[0], 1, x.shape[-1])
+                x = torch.cat([cls, x], dim=1)
+            x = x + self.pos_embed.to(x.dtype)
+            for blk in self.blocks:
+                x = blk(x)
+            return layer_norm(x, self.norm.weight, self.norm.bias)

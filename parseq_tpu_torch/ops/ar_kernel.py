@@ -32,6 +32,7 @@ import torch
 
 from parseq_tpu_torch.kernels.build import CSRC, load_library
 from parseq_tpu_torch.ops import layers
+from parseq_tpu_torch.utils import trace
 
 # Kernel launches made by ar_decode_fused in this process (one per launch).
 launches = 0
@@ -301,11 +302,13 @@ def ar_decode_fused(model, memory, rows=None):
         rows = rows_per_block(B, sms)
     if rows not in _ROWS_PER_BLOCK:
         raise ValueError(f'ar_decode_fused: rows must be one of {_ROWS_PER_BLOCK}, got {rows}')
-    c = prepare(model, memory)
+    with trace.span('ar.prepare', device=True, rows=B):
+        c = prepare(model, memory)
     for k, t in c.items():
         if t.device != memory.device or not t.is_contiguous():
             raise ValueError(f'ar_decode_fused: {k} must be contiguous on {memory.device}')
-    return decode_prepared(c, cfg, B, M, D, F, rows)
+    with trace.span('ar.kernel', rows=B):
+        return decode_prepared(c, cfg, B, M, D, F, rows)
 
 
 def decode_prepared(c, cfg, B, M, D, F, rows):

@@ -5,12 +5,14 @@ parseq_tpu/train/evaluate.py; reference base.py:112-164 and test.py:30-66).
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from parseq_tpu_torch.train.steps import normalize_u8
+from parseq_tpu_torch.utils import trace
 from parseq_tpu_torch.utils.metrics import ned_batch
 
 
@@ -86,31 +88,43 @@ def eval_dataset(model, loader, name='val') -> Result:
     softmax, argmax and gather. The ids and picked
     probabilities are copied to the host without blocking, so the next
     batch is queued on the device while the host decodes and scores this
-    one (one batch in flight)."""
+    one (one batch in flight). Each stage is a span (utils/trace.py):
+    eval.next, eval.h2d, eval.forward, and for the batch in flight
+    eval.wait, eval.decode and eval.score, each with the batch's index."""
     total = BatchResult()
     pending = None
 
     def finish(item):
-        done, ids, conf, labels, valid = item
-        if done is not None:
-            done.synchronize()
-        preds, pred_probs = model.tokenizer.decode_ids(ids.numpy(), conf.numpy())
-        total.add(score_decoded(model.charset_adapter, preds, pred_probs, labels, valid))
+        i, done, ids, conf, labels, valid = item
+        with trace.span('eval.wait', batch=i):
+            if done is not None:
+                done.synchronize()
+        with trace.span('eval.decode', batch=i):
+            preds, pred_probs = model.tokenizer.decode_ids(ids.numpy(), conf.numpy())
+        with trace.span('eval.score', batch=i):
+            total.add(score_decoded(model.charset_adapter, preds, pred_probs, labels, valid))
 
-    for images, labels, valid in loader:
-        x = torch.as_tensor(images).to(model.device)
-        if x.dtype == torch.uint8:
-            x = normalize_u8(x)
-        with torch.inference_mode():
+    it = iter(loader)
+    for i in itertools.count():
+        with trace.span('eval.next', batch=i):
+            item = next(it, None)
+        if item is None:
+            break
+        images, labels, valid = item
+        with trace.span('eval.h2d', batch=i):
+            x = torch.as_tensor(images).to(model.device)
+        with trace.span('eval.forward', batch=i), torch.inference_mode():
+            if x.dtype == torch.uint8:
+                x = normalize_u8(x)
             ids, conf = _device_post(model(x))
             ids, conf = ids.to('cpu', non_blocking=True), conf.to('cpu', non_blocking=True)
-        done = None
-        if model.device.type == 'cuda':
-            done = torch.cuda.Event()
-            done.record()
+            done = None
+            if model.device.type == 'cuda':
+                done = torch.cuda.Event()
+                done.record()
         if pending is not None:
             finish(pending)
-        pending = (done, ids, conf, labels, valid)
+        pending = (i, done, ids, conf, labels, valid)
     if pending is not None:
         finish(pending)
     return summarize(name, total)

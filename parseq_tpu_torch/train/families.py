@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from parseq_tpu_torch.models.parseq import gen_tgt_perms
 from parseq_tpu_torch.ops.ctc import ctc_loss
 from parseq_tpu_torch.ops.layers import ce_ignore_pad
+from parseq_tpu_torch.utils import trace
 
 # --- PARSeq -------------------------------------------------------------------
 
@@ -166,10 +167,16 @@ def _abinet_loss(model, cfg, batch, rng, dtype, *, pretraining=False, lm_only=Fa
 
 class TrainFamily:
     def __init__(self, prepare, loss, count, val='ce'):
-        self.prepare = prepare
+        self._prepare = prepare
         self.loss = loss
         self.count = count
         self.val = val  # 'ce' | 'ctc'
+
+    def prepare(self, tokenizer, labels, cfg, rng):
+        """The family's host preparation of a batch's labels (the span
+        train.prepare)."""
+        with trace.span('train.prepare', rows=len(labels)):
+            return self._prepare(tokenizer, labels, cfg, rng)
 
 
 FAMILIES = {

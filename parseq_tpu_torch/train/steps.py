@@ -22,6 +22,7 @@ import torch
 
 from parseq_tpu_torch.parallel import dist
 from parseq_tpu_torch.train import optim
+from parseq_tpu_torch.utils import trace
 
 
 def normalize_u8(x):
@@ -71,6 +72,10 @@ def make_train_step(family, cfg, compute_dtype=torch.bfloat16, microbatches=1, a
     rank holds the gradient of the global microbatch losses."""
 
     def train_step(state, batch, rng):
+        with trace.span('train.step', step=state['step']):
+            return _step(state, batch, rng)
+
+    def _step(state, batch, rng):
         model = state['model']
         params = [p for p in model.parameters()]
         batch = normalize_images(batch)
@@ -90,9 +95,11 @@ def make_train_step(family, cfg, compute_dtype=torch.bfloat16, microbatches=1, a
         total = dist.all_reduce_(local.clone())
         scales = n_ranks * local.double() / total.clamp(min=1).double()
         for i, mbatch in enumerate(mbatches):
-            loss, _ = family.loss(model, cfg, mbatch, rng, compute_dtype, **static)
-            loss = loss * scales[i].to(loss.dtype)
-            loss.backward()
+            with trace.span('train.forward', device=True, microbatch=i):
+                loss, _ = family.loss(model, cfg, mbatch, rng, compute_dtype, **static)
+                loss = loss * scales[i].to(loss.dtype)
+            with trace.span('train.backward', device=True, microbatch=i):
+                loss.backward()
             loss_sum += loss.detach()
         # a parameter the loss does not reach (ABINet's lm_only) has a zero gradient
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
@@ -100,15 +107,16 @@ def make_train_step(family, cfg, compute_dtype=torch.bfloat16, microbatches=1, a
         if m * n_ranks > 1:
             torch._foreach_div_(grads, m * n_ranks)
         state['step'] += 1
-        if state['accum'] is None:
-            gnorm = state['opt_state'].step(params, grads)
-        else:
-            gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-            torch._foreach_add_(state['accum'], grads)
-            if state['step'] % accumulate == 0:
-                torch._foreach_div_(state['accum'], accumulate)
-                state['opt_state'].step(params, state['accum'])
-                torch._foreach_zero_(state['accum'])
+        with trace.span('train.optimizer', device=True):
+            if state['accum'] is None:
+                gnorm = state['opt_state'].step(params, grads)
+            else:
+                gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+                torch._foreach_add_(state['accum'], grads)
+                if state['step'] % accumulate == 0:
+                    torch._foreach_div_(state['accum'], accumulate)
+                    state['opt_state'].step(params, state['accum'])
+                    torch._foreach_zero_(state['accum'])
         return {'loss': loss_sum / (m * n_ranks), 'numel': total.sum(), 'grad_norm': gnorm}
 
     return train_step

@@ -35,16 +35,22 @@ def test_json_keys_equal_the_jax_cli(tmp_path):
     assert got['latency_ms_median'] > 0 and got['throughput_img_s'] > 0
     model = registry.create_model('crnn', device='cpu', **CRNN_SMALL)
     assert got['params_M'] == round(sum(p.numel() for p in model.module.parameters()) / 1e6, 3)
-    assert (tmp_path / 'prof' / 'trace.json').stat().st_size > 0
+    events = json.loads((tmp_path / 'prof' / 'trace.json').read_text())['traceEvents']
+    # the program's spans, a track of their own beside the profiler's
+    assert {'ph': 'M', 'name': 'process_name', 'pid': 'program',
+            'args': {'name': 'program'}} in events
 
 
-def test_sweep_prints_a_line_per_label_length():
+def test_sweep_prints_a_line_per_label_length(tmp_path):
     lines = _lines(['--model', 'parseq', '--device', 'cpu', '--iters', '1', '--trials', '1',
-                    '--sweep', 'enc_depth:int=1', 'embed_dim:int=48', 'enc_num_heads:int=4',
-                    'dec_num_heads:int=6'])
+                    '--sweep', '--profile', str(tmp_path), 'enc_depth:int=1', 'embed_dim:int=48',
+                    'enc_num_heads:int=4', 'dec_num_heads:int=6'])
     assert [r['max_label_length'] for r in lines] == list(range(1, 26, 4))
     macs = [r['flops_per_img_G'] for r in lines]
     assert macs == sorted(macs) and macs[0] < macs[-1]  # decoding grows with the length
+    events = json.loads((tmp_path / 'trace.json').read_text())['traceEvents']
+    names = {e['name'] for e in events if e.get('pid') == 'program' and e.get('ph') == 'X'}
+    assert {'vit.encoder', 'parseq.refine'} <= names
 
 
 def test_int8_and_cuda_without_a_card_refused():
