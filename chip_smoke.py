@@ -48,7 +48,10 @@ from a seed), in phases, each printing its result:
   4. main paths (inference): hub.parseq(), hub.vitstr(),
      hub.parseq_patch16_224() and hub.abinet() on cuda in bf16 read batches
      of 1, 7 and 256 NHWC images; each model's kernel launch counts are set
-     to 0 just before its reads and must have risen just after; bf16 kernel
+     to 0 just before its reads and must have risen just after (PARSeq-S's
+     B5 too, whose encoder takes it; the others must not launch B5), and
+     the `kernels` line's B5 launches are those reads' (the encoder bench's
+     apart, as launches_bench); bf16 kernel
      path vs the f32 plain path; then hub.vitstr(dtype=torch.float32) reads
      B = 1 and 7 through B2 in f32 (its count risen), its logits against the
      f32 plain path; then the CNN families: hub.crnn(), hub.trba() and
@@ -811,14 +814,21 @@ def main():
         images[name] = batches
         ar_kernel.launches = 0
         attention.launches = 0
+        encoder_kernel.launches = 0
         results = {B: bundle.read(x) for B, x in batches.items()}
-        launches = {'B1': ar_kernel.launches, 'B2': attention.launches}
-        needs = {'parseq': ('B1',), 'vitstr': ('B2',), 'parseq-patch16-224': ('B1', 'B2'),
+        launches = {'B1': ar_kernel.launches, 'B2': attention.launches,
+                    'B5': encoder_kernel.launches}
+        # B5 takes PARSeq-S's L = 128 encoder; ViTSTR's 197 and patch16-224's
+        # 196 tokens keep the eager blocks
+        needs = {'parseq': ('B1', 'B5'), 'vitstr': ('B2',), 'parseq-patch16-224': ('B1', 'B2'),
                  'abinet': ('B2',)}[name]
         for kernel in needs:
             if launches[kernel] < 1:
                 raise AssertionError(f'{name}: the main path did not launch kernel {kernel}')
             main_launches[kernel] += launches[kernel]
+        if 'B5' not in needs and launches['B5']:
+            raise AssertionError(f'{name}: launched kernel B5 {launches["B5"]} times, '
+                                 f'outside the shapes it takes')
         for B, (labels, confs) in results.items():
             if not len(labels) == len(confs) == B:
                 raise AssertionError(f'{name}: read returned {len(labels)} labels for {B} images')
@@ -888,10 +898,10 @@ def main():
     phase(f'6 main paths on cuda: the encoder-kernel bench (B5) and B3\'s op [{card}]')
     encoder_kernel.launches = 0
     bench = enc_bench.main(['--batch', str(TIMED_BATCH), '--depth', str(B5_DEPTH)])
-    main_launches['B5'] = encoder_kernel.launches
-    if main_launches['B5'] < 1:
+    b5_bench = encoder_kernel.launches
+    if b5_bench < 1:
         raise AssertionError('the encoder-kernel bench did not launch kernel B5')
-    print(f'encoder-kernel bench: B5 launches {main_launches["B5"]}')
+    print(f'encoder-kernel bench: B5 launches {b5_bench}')
     q, k, v, g = (torch.randn(6 * TIMED_BATCH, 128, 64, generator=gen, device=dev)
                   .to(torch.bfloat16).requires_grad_() for _ in range(4))
     attention.split_launches = 0
@@ -1102,7 +1112,7 @@ def main():
         {'name': 'fused_encoder_blocks', 'route': 'cuda',
          'source': 'parseq_tpu_torch/csrc/encoder_blocks.cu',
          'replaces': 'parseq_tpu/ops/encoder_kernel.py:170',
-         'launches': main_launches['B5'], 'max_abs_err': b5_err,
+         'launches': main_launches['B5'], 'launches_bench': b5_bench, 'max_abs_err': b5_err,
          'ms': bench['b5_ms'], 'plain_ms': b5_plain_ms,
          'bound_ms': b5_ms[0], 'bound_us': b5_ms[0] * 1e3, 'bound_by': b5_ms[1],
          'library_ms': bench['library_ms'],

@@ -25,6 +25,14 @@ layer) and img/s, with the card's name and power limit. `--device cpu`
 runs the plain versions (the eager loop and B5's plain version) once and
 prints how far they agree; it times nothing. The last line is one JSON
 object with the results.
+
+`--sweep` (cuda) times instead, at every B of SWEEP_BATCHES, the wall ms a
+call (a synchronize before and after, host work included, median of 20):
+B5 with its operands built, the model's route to it
+(`VisionTransformer.fused_blocks`: the stacked operands' check, then B5)
+and the eager blocks; and the smallest B from which the route beats the
+eager blocks at every larger B (1 on the H100, so models/vit.py routes every
+batch; its docstring keeps the table).
 """
 
 import argparse
@@ -32,6 +40,7 @@ import json
 import os
 import statistics
 import sys
+import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), '..'))
 
@@ -47,6 +56,7 @@ L, D, HEADS, MLP = 128, 384, 6, 1536
 SEED = 0
 RUNS = 20
 SPIN_CYCLES = 50_000_000  # ~25 ms of GPU clock: longer than the host takes to enqueue a timed run
+SWEEP_BATCHES = (1, 8, 32, 64, 128, 256, 512)
 # Standard deviation of the attention scores that make_blocks aims at: with
 # LayerNorm outputs of about N(0, 1), q/k/v weights of variance SCORE_STD / D
 # give scores (scaled by 1/sqrt(dh)) of standard deviation about SCORE_STD,
@@ -142,11 +152,72 @@ def cuda_median_ms(fn, runs=RUNS, warmup=3, calls=1):
     return statistics.median(times)
 
 
+def wall_median_ms(fn, runs=RUNS, warmup=3):
+    """Median over `runs` of the wall time of one call, from a synchronized
+    card to the card synchronized after it: host and device work both."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def min_batch(rows):
+    """The smallest measured B from which the route is faster than the eager
+    blocks at every larger measured B (None if it loses at the largest)."""
+    best = None
+    for row in sorted(rows, key=lambda r: -r['batch']):
+        if row['route_ms'] >= row['eager_ms']:
+            break
+        best = row['batch']
+    return best
+
+
+def sweep(blocks, depth, dev, card):
+    """The --sweep table (rows of batch, b5_ms, route_ms, eager_ms) and the
+    host us a call of the gate and of the kept operands' check."""
+    cfg = vit.ViTConfig(embed_dim=D, depth=depth, num_heads=HEADS, mlp_ratio=MLP / D)
+    enc = vit.VisionTransformer(cfg).to(dev)
+    enc.blocks = blocks
+    op = encoder_kernel.stack_block_params(blocks)
+    rows = []
+    for B in SWEEP_BATCHES:
+        x = torch.from_numpy(np.random.default_rng(SEED + 1).standard_normal(
+            (B, L, D), dtype=np.float32)).to(dev, torch.bfloat16)
+        row = {'batch': B,
+               'b5_ms': wall_median_ms(
+                   lambda: encoder_kernel.fused_encoder_blocks(op, x, num_heads=HEADS)),
+               'route_ms': wall_median_ms(lambda: enc.fused_blocks(x)),
+               'eager_ms': wall_median_ms(lambda: eager(blocks, x))}
+        rows.append(row)
+        print(f'sweep B={B:4d} depth={depth} bf16 [{card}]: B5 {row["b5_ms"]:8.4f}  route '
+              f'{row["route_ms"]:8.4f}  eager {row["eager_ms"]:8.4f} wall ms a call', flush=True)
+    taken = vit.takes_encoder_kernel(x.device, x.dtype, x.shape, HEADS, enc.blocks)
+    t0 = time.perf_counter()
+    for _ in range(100):
+        vit.takes_encoder_kernel(x.device, x.dtype, x.shape, HEADS, enc.blocks)
+    gate_us = (time.perf_counter() - t0) * 1e4
+    t0 = time.perf_counter()
+    for _ in range(100):
+        enc.stacked_blocks()
+    kept_us = (time.perf_counter() - t0) * 1e4
+    print(f'the gate (vit.takes_encoder_kernel) at B={B}: {taken}, {gate_us:.1f} us a call; '
+          f'the kept operands (VisionTransformer.stacked_blocks) {kept_us:.1f} us a call')
+    return rows, gate_us, kept_us
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--batch', type=int, default=256)
     ap.add_argument('--depth', type=int, default=12)
     ap.add_argument('--device', default='cuda', choices=('cuda', 'cpu'))
+    ap.add_argument('--sweep', action='store_true',
+                    help=f'wall ms a call at B in {SWEEP_BATCHES} (cuda)')
     args = ap.parse_args(argv)
     if args.device == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('torch_encoder_kernel_bench: no CUDA device (pass --device cpu for '
@@ -175,6 +246,13 @@ def main(argv=None):
         torch.backends.cuda.matmul.allow_tf32 = False
         card = card_line()
         blocks = blocks.to(dev)
+        if args.sweep:
+            rows, result['gate_us'], result['kept_us'] = sweep(blocks, depth, dev, card)
+            result.update(sweep=rows, min_batch=min_batch(rows), card=card)
+            print(f'route faster than the eager blocks from B = {result["min_batch"]} on')
+            print(card)
+            print(json.dumps(result))
+            return result
         lib = library_encoder(blocks).to(dev, torch.bfloat16)
         op = encoder_kernel.stack_block_params(blocks)
         xb = x.to(dev, torch.bfloat16)

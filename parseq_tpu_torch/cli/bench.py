@@ -38,6 +38,7 @@ import time
 
 import torch
 
+from parseq_tpu_torch.models import vit
 from parseq_tpu_torch.models.parseq import PARSeq
 from parseq_tpu_torch.ops import attention
 from parseq_tpu_torch.ops.quant import Int8Linear, quantize_bundle
@@ -80,11 +81,12 @@ def time_forward(fwd, batches, trials, device):
 
 def per_image_flops(model, images):
     """MACs per image through the plain paths: kernels are opaque to the
-    counter, so PARSeq's AR decode runs its scan and encoder attention its
-    einsum. None when counting fails (the number is informational)."""
+    counter, so PARSeq's AR decode runs its scan, the encoder its eager
+    blocks and their attention its einsum. None when counting fails (the
+    number is informational)."""
     kw = {'use_fused_ar': False} if isinstance(model.module, PARSeq) else {}
     try:
-        with attention.force_einsum():
+        with attention.force_einsum(), vit.force_eager_blocks():
             macs = count_flops(model.module, images, dtype=model.dtype, **kw)
     except Exception:  # noqa: BLE001 - flops are informational
         return None

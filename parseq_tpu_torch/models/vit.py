@@ -12,19 +12,57 @@ covers cls + patches (timm's default); the PARSeq encoder has none.
 Forward semantics: patch_embed -> [cls ;] -> +pos_embed -> pre-LN blocks
 (x += attn(ln(x)); x += mlp(ln(x))) -> final LayerNorm. Self-attention at
 L >= KERNEL_MIN_LEN runs kernel B2 (ops/attention.py).
+
+Where `takes_encoder_kernel` holds (bf16 tokens on a CUDA device, no
+autograd, no int8 weight, shapes that kernel B5 takes: PARSeq-S's L = 128
+encoder in inference), all blocks run as one launch of B5
+(ops/encoder_kernel.py) on operands stacked once and kept between calls;
+everything else runs the eager blocks. B5 wins at every batch, one image
+included: wall ms a call at L 128, D 384, 6 heads, MLP 1536, depth 12,
+bf16, host work included, on an NVIDIA H100 80GB HBM3 at 700 W
+(experiments/torch_encoder_kernel_bench.py --sweep; B5 with its operands
+built, the route = the kept operands' check + B5):
+
+    B       1      8     32     64    128    256    512
+    B5      4.21   4.20   4.32   4.28   4.78   6.81  13.35
+    route   4.29   4.54   4.53   4.67   5.05   7.30  14.10
+    eager   8.43   8.61  10.29   8.00  13.18  25.45  48.06
+
+At B = 1 one block runs all twelve layers; the eager blocks' ~300 launches
+take longer on the host.
 """
 
 from __future__ import annotations
 
+import contextlib
+import weakref
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from parseq_tpu_torch.ops import encoder_kernel, quant
 from parseq_tpu_torch.ops.attention import encoder_self_attention
 from parseq_tpu_torch.ops.layers import layer_norm, mlp
 from parseq_tpu_torch.utils import trace
+
+# True inside force_eager_blocks()
+_EAGER_BLOCKS = False
+
+
+@contextlib.contextmanager
+def force_eager_blocks():
+    """Run every encoder's blocks eagerly while the context is open: for a
+    count of their products (a FLOP counter sees none inside B5) and for
+    comparisons; nothing on the main path uses it."""
+    global _EAGER_BLOCKS
+    old = _EAGER_BLOCKS
+    _EAGER_BLOCKS = True
+    try:
+        yield
+    finally:
+        _EAGER_BLOCKS = old
 
 
 @dataclass(frozen=True)
@@ -105,6 +143,7 @@ class VisionTransformer(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_tokens, d))
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
         self.norm = nn.LayerNorm(d)
+        self._stacked = None  # (parameters, their state, operands) of stacked_blocks
 
     def patch_embedding(self, images):
         """images (B, H, W, C) -> tokens (B, N, D) in the images' dtype."""
@@ -114,15 +153,93 @@ class VisionTransformer(nn.Module):
         out = out.flatten(2).transpose(1, 2)  # (B, gh*gw, D), row-major patch order
         return out + proj.bias.to(x.dtype)
 
+    def tokens(self, images):
+        """images (B, H, W, C) -> the blocks' input (B, N[+1], D) in the
+        images' dtype: patch embedding, [cls ;] and positions."""
+        x = self.patch_embedding(images)
+        if self.class_token:
+            cls = self.cls_token.to(x.dtype).expand(x.shape[0], 1, x.shape[-1])
+            x = torch.cat([cls, x], dim=1)
+        return x + self.pos_embed.to(x.dtype)
+
+    def eager_blocks(self, x):
+        for blk in self.blocks:
+            x = blk(x)
+        return x
+
+    def fused_blocks(self, x):
+        """Every block on x (B, L, D) in one launch of kernel B5."""
+        return encoder_kernel.fused_encoder_blocks(self.stacked_blocks(), x,
+                                                   num_heads=self.blocks[0].num_heads)
+
+    def stacked_blocks(self):
+        """B5's operands (encoder_kernel.stack_block_params) of the blocks,
+        kept while every block parameter is the same object (held by a weak
+        reference, so a replaced Parameter never matches, whatever address
+        its storage takes) with the device, storage and version it was
+        stacked from: an optimizer step or load_state_dict (in place), .to()
+        (new tensors) or a Parameter set anew make them stale, and they are
+        stacked anew. Inference tensors (parameters made or moved inside
+        torch.inference_mode()) keep no version, so nothing would tell an
+        in-place change: their operands are stacked on every call."""
+        params = [p for m in self.blocks.modules() for p in m._parameters.values()
+                  if p is not None]
+        if any(p.is_inference() for p in params):
+            self._stacked = None
+            with torch.no_grad():
+                return encoder_kernel.stack_block_params(self.blocks)
+        state = [(p.device, p.data_ptr(), p._version) for p in params]
+        kept = self._stacked
+        if (kept is None or kept[1] != state or len(kept[0]) != len(params)
+                or any(ref() is not p for ref, p in zip(kept[0], params))):
+            self._stacked = None
+            with torch.no_grad():
+                self._stacked = ([weakref.ref(p) for p in params], state,
+                                 encoder_kernel.stack_block_params(self.blocks))
+        return self._stacked[2]
+
+    def __getstate__(self):
+        # pickling (torch.save of the module) drops the kept operands and
+        # their weak references, which cannot be pickled
+        state = super().__getstate__()
+        state['_stacked'] = None
+        return state
+
+    def _apply(self, fn, *args, **kwargs):
+        # .to(), .cuda(), .cpu(): drop the stacked operands with the tensors
+        # they were made from, which frees them on the device the module
+        # leaves, and no later tensor at a reused address and version can
+        # match their key
+        self._stacked = None
+        return super()._apply(fn, *args, **kwargs)
+
     def forward(self, images):
         """images (B, H, W, C) -> tokens (B, N[+1], D), final LN applied;
-        the span vit.encoder, with device events."""
-        with trace.span('vit.encoder', device=True, rows=images.shape[0]):
-            x = self.patch_embedding(images)
-            if self.class_token:
-                cls = self.cls_token.to(x.dtype).expand(x.shape[0], 1, x.shape[-1])
-                x = torch.cat([cls, x], dim=1)
-            x = x + self.pos_embed.to(x.dtype)
-            for blk in self.blocks:
-                x = blk(x)
+        the span vit.encoder, with device events, its attribute `fused` True
+        where the blocks ran as one launch of kernel B5."""
+        # the tokens' shape is the positional table's (a subclass's cfg may
+        # be another config: ViTSTR's counts characters in num_tokens)
+        shape = (images.shape[0], *self.pos_embed.shape[1:])
+        fused = (len(self.blocks) > 0 and takes_encoder_kernel(
+            images.device, images.dtype, shape, self.blocks[0].num_heads, self.blocks))
+        with trace.span('vit.encoder', device=True, rows=images.shape[0], fused=fused):
+            x = self.tokens(images)
+            x = self.fused_blocks(x) if fused else self.eager_blocks(x)
             return layer_norm(x, self.norm.weight, self.norm.bias)
+
+
+def takes_encoder_kernel(device, dtype, shape, num_heads, blocks):
+    """Whether `blocks` run as one launch of kernel B5 on tokens of this
+    device, dtype and (B, L, D) shape: a CUDA device, bf16, autograd off,
+    outside force_eager_blocks(), no block weight an int8 Int8Weight, and
+    shapes the kernel takes (encoder_kernel.takes). Anything else (the CPU,
+    training, f32, the int8 path, ViTSTR's L = 197, widths other than 64 a
+    head up to 512) runs the eager blocks."""
+    _, L, D = shape
+    if (device.type != 'cuda' or dtype != torch.bfloat16 or torch.is_grad_enabled()
+            or _EAGER_BLOCKS):
+        return False
+    if any(quant.is_quantized(lin.weight) for b in blocks
+           for lin in (b.attn.qkv, b.attn.proj, b.mlp.fc1, b.mlp.fc2)):
+        return False
+    return encoder_kernel.takes(L, D, num_heads, blocks[0].mlp.fc1.weight.shape[0])

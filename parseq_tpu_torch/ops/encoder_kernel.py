@@ -26,7 +26,9 @@ The TPU kernel's head-masked full-width attention gives the same sums.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+import re
 
 import torch
 import torch.nn.functional as F
@@ -139,12 +141,28 @@ def _check(op, x, num_heads):
             raise ValueError(f'fused_encoder_blocks: {name} must be a contiguous '
                              f'{(depth, *shapes[name])} {dt} tensor on {x.device}, got '
                              f'{tuple(t.shape)} {t.dtype} on {t.device}')
-    max_len = library().parseq_encoder_blocks_max_len()
-    if L > max_len or D != 64 * num_heads or D % 128 or D > 512 or F_ % 128:
-        raise ValueError(f'fused_encoder_blocks: the kernel needs L <= {max_len}, D == 64 * '
+    if not takes(L, D, num_heads, F_):
+        raise ValueError(f'fused_encoder_blocks: the kernel needs L <= {max_len()}, D == 64 * '
                          f'heads, D <= 512 and D, F multiples of 128 (L={L}, D={D}, '
                          f'heads={num_heads}, F={F_})')
     return depth, F_
+
+
+@functools.cache
+def max_len():
+    """The longest sequence the kernel takes: kMaxL of csrc/encoder_blocks.cu,
+    read from the source the library is built from (what the library's
+    parseq_encoder_blocks_max_len returns), so that asking does not build or
+    load it."""
+    text = (CSRC / 'encoder_blocks.cu').read_text()
+    return int(re.search(r'^constexpr int kMaxL = (\d+);', text, re.M).group(1))
+
+
+def takes(L, D, num_heads, F_):
+    """Whether the kernel takes L tokens of width D in `num_heads` heads with
+    MLP width F_: the shape conditions on which _check raises."""
+    return (D == 64 * num_heads and D % 128 == 0 and D <= 512 and F_ % 128 == 0
+            and L <= max_len())
 
 
 def fused_encoder_blocks(op, x, *, num_heads):

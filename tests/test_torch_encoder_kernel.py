@@ -283,6 +283,12 @@ def cuda_device():
 @pytest.mark.gpu
 @pytest.mark.parametrize('B,L,D,heads,F,depth', [(1, 128, 384, 6, 1536, 2),
                                                  (7, 128, 384, 6, 1536, 2),
+                                                 # PARSeq-S's read batch: two
+                                                 # waves of two blocks an SM
+                                                 # on 132 SMs; and one block
+                                                 # into the second wave
+                                                 (512, 128, 384, 6, 1536, 12),
+                                                 (265, 128, 384, 6, 1536, 12),
                                                  (3, 37, 128, 2, 256, 3),
                                                  # Depth 1 (the tight limits).
                                                  # L <= 64: warpgroup 0 alone

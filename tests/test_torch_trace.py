@@ -120,7 +120,7 @@ def test_eval_dataset_emits_its_stages_once_a_batch_in_order():
     for i, s in enumerate(spans):
         if s['name'] == 'eval.forward':
             assert _children(spans, i) == ['vit.encoder', 'parseq.refine']
-            assert spans[i + 1]['attrs'] == {'rows': 3}
+            assert spans[i + 1]['attrs'] == {'rows': 3, 'fused': False}  # the CPU: eager blocks
 
 
 def test_train_step_emits_forward_backward_optimizer_under_step():
