@@ -27,6 +27,13 @@ Numerics follow the JAX package: batch norm in f32; PositionAttention's
 scores are a product in the compute dtype divided by sqrt(E) in that dtype,
 then an f32 softmax; nearest upsampling uses half-pixel centres
 (jax.image.resize 'nearest' == F.interpolate 'nearest-exact').
+
+Spans (utils/trace.py, each with device events and the attribute `rows`):
+abinet.vision around the vision model, holding abinet.backbone (resnet45),
+abinet.transformer (its layers, kernel B2 inside) and
+abinet.position_attention (or abinet.attention, the `-sv` variant); then
+one abinet.iteration a language pass and its alignment, with the attribute
+`iteration` (0 to iter_size - 1).
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from parseq_tpu_torch.models.parseq import MultiheadAttentionParams
 from parseq_tpu_torch.ops import cnn, layers
 from parseq_tpu_torch.ops.attention import encoder_self_attention
 from parseq_tpu_torch.ops.layers import NEG_INF, dropout, layer_norm, linear
+from parseq_tpu_torch.utils import trace
 
 
 @dataclass(frozen=True)
@@ -401,17 +409,25 @@ class ABINet(nn.Module):
         """images (B, H, W, 3) NHWC in the compute dtype -> {'feature' (B, T, E),
         'logits' (B, T, C) f32, 'pt_lengths' (B,)}."""
         cfg, V = self.cfg, self.vision
-        x = V.backbone.resnet(images.permute(0, 3, 1, 2))
-        B, E, H, W = x.shape
-        if cfg.v_backbone == 'transformer':
-            seq = x.flatten(2).transpose(1, 2) + V.backbone.pos_encoder.table(H * W, x.dtype)
-            for layer in V.backbone.transformer.layers:
-                seq = layer(seq, rng)
-            x = seq.transpose(1, 2).reshape(B, E, H, W)
-        vecs = V.attention(x)
-        logits = linear(vecs, V.cls.weight, V.cls.bias).float()
-        return {'feature': vecs, 'logits': logits,
-                'pt_lengths': get_length(logits, cfg.null_label)}
+        rows = images.shape[0]
+        heads = ('abinet.position_attention' if isinstance(V.attention, PositionAttention)
+                 else 'abinet.attention')
+        with trace.span('abinet.vision', device=True, rows=rows):
+            with trace.span('abinet.backbone', device=True, rows=rows):
+                x = V.backbone.resnet(images.permute(0, 3, 1, 2))
+            B, E, H, W = x.shape
+            if cfg.v_backbone == 'transformer':
+                with trace.span('abinet.transformer', device=True, rows=rows):
+                    seq = (x.flatten(2).transpose(1, 2)
+                           + V.backbone.pos_encoder.table(H * W, x.dtype))
+                    for layer in V.backbone.transformer.layers:
+                        seq = layer(seq, rng)
+                    x = seq.transpose(1, 2).reshape(B, E, H, W)
+            with trace.span(heads, device=True, rows=rows):
+                vecs = V.attention(x)
+            logits = linear(vecs, V.cls.weight, V.cls.bias).float()
+            return {'feature': vecs, 'logits': logits,
+                    'pt_lengths': get_length(logits, cfg.null_label)}
 
     def language_forward(self, tokens, lengths, rng=None):
         """BCN language model. tokens (B, T, num_classes) probabilities in the
@@ -448,13 +464,14 @@ class ABINet(nn.Module):
         v_res = self.vision_forward(images.to(dtype), rng)
         a_res = v_res
         all_a, all_l = [], []
-        for _ in range(cfg.iter_size):
-            tokens = torch.softmax(a_res['logits'], dim=-1).to(dtype)
-            lengths = a_res['pt_lengths'].clamp(2, cfg.max_length)
-            l_res = self.language_forward(tokens, lengths, rng)
-            all_l.append(l_res)
-            a_res = self.alignment_forward(l_res['feature'], v_res['feature'])
-            all_a.append(a_res)
+        for j in range(cfg.iter_size):
+            with trace.span('abinet.iteration', device=True, rows=images.shape[0], iteration=j):
+                tokens = torch.softmax(a_res['logits'], dim=-1).to(dtype)
+                lengths = a_res['pt_lengths'].clamp(2, cfg.max_length)
+                l_res = self.language_forward(tokens, lengths, rng)
+                all_l.append(l_res)
+                a_res = self.alignment_forward(l_res['feature'], v_res['feature'])
+                all_a.append(a_res)
         return all_a, all_l, v_res
 
     def forward(self, images, dtype=torch.float32):
