@@ -83,9 +83,12 @@ def dropout(x, rate, rng=None):
 
 
 def bool_to_bias(mask, dtype=torch.float32):
-    """torch-convention boolean mask (True = masked) -> additive bias."""
-    return torch.where(mask, torch.tensor(NEG_INF, dtype=dtype, device=mask.device),
-                       torch.tensor(0.0, dtype=dtype, device=mask.device))
+    """torch-convention boolean mask (True = masked) -> additive bias.
+
+    Built from Python scalars on the mask's device: a scalar tensor made
+    there would be a pageable host-to-device copy, which waits for every
+    kernel queued before it."""
+    return torch.where(mask, NEG_INF, 0.0).to(dtype)
 
 
 def attention(q, k, v, *, bias=None, dropout_rate=0.0, rng=None):

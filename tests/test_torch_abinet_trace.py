@@ -3,7 +3,11 @@ widths, read through eval_dataset as the benchmark's read cell reads it:
 abinet.vision holds abinet.backbone, abinet.transformer and
 abinet.position_attention, then one abinet.iteration a language pass and
 its alignment, numbered 0 to iter_size - 1; nothing is recorded while
-recording is off."""
+recording is off. Marked `gpu` (skipped without a card): ABINet's read
+forward at its published widths never makes the host wait for the card.
+
+No jax import: the GPU host runs the `gpu` case
+(`python -m pytest --noconftest -m gpu tests/test_torch_abinet_trace.py`)."""
 
 import numpy as np
 import pytest
@@ -64,3 +68,35 @@ def test_spans_nest_under_the_forward(bundle):
 def test_nothing_is_recorded_while_off(bundle):
     _read(bundle)
     assert trace.spans() == []
+
+
+@pytest.mark.gpu
+def test_read_forward_never_synchronizes():
+    """ABINet's bf16 read forward through ModelBundle at B = 8, all three
+    iterations (each language layer's key-padding mask) and B2 in the vision
+    transformer, makes no synchronizing CUDA call: under sync-debug mode
+    'error' such a call (a pageable copy to the card, an .item()) raises.
+    One forward first, outside the mode, loads the kernels and picks cuDNN's
+    algorithms."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (kernel B2 has no CPU mode)')
+    from parseq_tpu_torch.ops import attention
+
+    bundle = registry.create_model('abinet', device='cuda', dtype=torch.bfloat16)
+    assert bundle.cfg.iter_size == 3
+    images = torch.rand((8, 32, 128, 3), generator=torch.Generator().manual_seed(0))
+    images = (2 * images - 1).to('cuda')
+    bundle(images)
+    torch.cuda.synchronize()
+    launches = attention.launches
+    with trace.recording():
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            logits = bundle(images)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    assert attention.launches == launches + bundle.cfg.v_num_layers
+    assert [s['attrs']['iteration'] for s in trace.spans()
+            if s['name'] == 'abinet.iteration'] == [0, 1, 2]
+    assert logits.shape == (8, bundle.cfg.max_length, bundle.cfg.num_classes)
+    assert bool(torch.isfinite(logits).all())

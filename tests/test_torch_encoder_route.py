@@ -3,7 +3,8 @@ takes_encoder_kernel, VisionTransformer.stacked_blocks / fused_blocks):
 the gate's decision table, the stacked operands kept between calls and
 stacked anew after a parameter changes, a CPU forward that never takes the
 route, the benchmark's readers of the route, and (marked `gpu`, skipped
-without a card) PARSeq-S routed at B = 512 against its eager blocks.
+without a card) PARSeq-S routed at B = 512 against its eager blocks, and a
+routed read forward that never makes the host wait for the card.
 
 No jax import: the GPU host runs the `gpu` case
 (`python -m pytest --noconftest -m gpu tests/test_torch_encoder_route.py`).
@@ -407,3 +408,29 @@ def test_routed_parseq_s_matches_its_eager_blocks(bench, cuda_device):
         assert agree and confident > 0, name
     routed, eager = found['routed vs f32'], found['eager vs f32']
     assert routed[0] <= NO_WORSE * eager[0] and routed[1] <= NO_WORSE * eager[1]
+
+
+@pytest.mark.gpu
+def test_routed_parseq_s_read_forward_never_synchronizes(cuda_device):
+    """PARSeq-S's bf16 read forward through ModelBundle at B = 8 (B5's
+    blocks, B1's AR decode, the refinement with its key-padding mask) makes
+    no synchronizing CUDA call: under sync-debug mode 'error' such a call
+    (a pageable copy to the card, an .item()) raises. One forward first,
+    outside the mode, loads the kernels and stacks B5's operands."""
+    from parseq_tpu_torch.ops import ar_kernel
+    from parseq_tpu_torch.utils import registry
+
+    bundle = registry.create_model('parseq', device=cuda_device, dtype=torch.bfloat16)
+    images = torch.rand((8, 32, 128, 3), generator=torch.Generator().manual_seed(0))
+    images = (2 * images - 1).to(cuda_device)
+    bundle(images)
+    torch.cuda.synchronize()
+    launches = encoder_kernel.launches, ar_kernel.launches
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        logits = bundle(images)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    assert (encoder_kernel.launches, ar_kernel.launches) == (launches[0] + 1, launches[1] + 1)
+    assert logits.shape == (8, bundle.cfg.num_steps, bundle.cfg.num_classes)
+    assert bool(torch.isfinite(logits).all())

@@ -80,6 +80,18 @@ def test_bool_to_bias_and_embedding():
         np.asarray(jl.embedding({'w': jnp.asarray(w)}, jnp.asarray(ids))))
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_bool_to_bias_values(dtype):
+    """The bias of each dtype, element for element, on the mask's device."""
+    mask = torch.from_numpy(np.random.default_rng(RNG_SEED + 2).random((3, 9)) > 0.5)
+    got = tl.bool_to_bias(mask, dtype)
+    assert got.dtype == dtype and got.device == mask.device and got.shape == mask.shape
+    assert torch.equal(got, torch.where(mask, tl.NEG_INF, 0.0).to(dtype))
+    assert torch.equal(got[mask], torch.full_like(got[mask], tl.NEG_INF))
+    assert torch.equal(got[~mask], torch.zeros_like(got[~mask]))
+    assert not torch.signbit(got[~mask]).any()  # +0, not -0
+
+
 @pytest.mark.parametrize('case', ['plain', 'causal', 'causal_padding', 'cross'])
 def test_mha(case):
     rng = np.random.default_rng(RNG_SEED + 3)
