@@ -69,7 +69,7 @@ from a seed), in phases, each printing its result:
      and 12; B4's launch count is set to 0 just before and must reach
      12 layers x microbatches x steps; metrics, checkpoints, a reload and a
      read from the best checkpoint; one step's gradients with B4 against
-     plain autograd (plain_backward()); step time both ways, peak memory,
+     plain autograd (kernels.plain()); step time both ways, peak memory,
      one profiled step (device busy time, B4's share, the top kernels), and
      the step at 1, 2 and 4 microbatches;
   6. main paths of this slice: the encoder-kernel bench
@@ -590,7 +590,7 @@ def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
         return 1
-    from parseq_tpu_torch import hub
+    from parseq_tpu_torch import hub, kernels
     from parseq_tpu_torch.data import native
     from parseq_tpu_torch.kernels.build import find_nvcc
     from parseq_tpu_torch.models.abinet import ABINet
@@ -846,14 +846,13 @@ def main():
                 # Vision logits only: the iterative LM feeds argmax lengths
                 # back, so near-ties on random weights fork the full output.
                 main = module.vision_forward(x.to(torch.bfloat16))['logits']
-                with attention.force_einsum():
+                with kernels.plain():
                     ref = module.vision_forward(x)['logits']
                 what = 'vision logits'
             else:
                 main = module(x, dtype=torch.bfloat16)
-                with attention.force_einsum():
-                    kw = {'use_fused_ar': False} if isinstance(module, PARSeq) else {}
-                    ref = module(x, dtype=torch.float32, **kw)
+                with kernels.plain():
+                    ref = module(x, dtype=torch.float32)
                 what = 'logits'
         diff, n_confident = compare(main, ref, MAIN_ATOL, MAIN_MARGIN, f'{name} bf16 main path')
         print(f'{name} B=7 bf16 kernel path vs f32 plain path ({what}): max_abs_diff={diff:.3e}, '
@@ -879,7 +878,7 @@ def main():
     with torch.inference_mode():
         x = torch.from_numpy(images['vitstr'][7]).to(dev)
         main = module(x, dtype=torch.float32)
-        with attention.force_einsum():
+        with kernels.plain():
             ref = module(x, dtype=torch.float32)
     diff, n_confident = compare(main, ref, F32_MAIN_ATOL, F32_MAIN_MARGIN, 'vitstr f32 kernel path')
     print(f'vitstr f32: B2 launches during its reads {f32_launches}; B=7 f32 kernel path vs f32 '
@@ -1333,9 +1332,10 @@ def train_phase(dev, card, main_launches):
     """PARSeq-S trains through cli.train on a synthetic LMDB; checks, reload,
     the B4-vs-plain gradient comparison and the step times. Returns the
     numbers it measured."""
+    from parseq_tpu_torch import kernels
     from parseq_tpu_torch.cli import train as train_cli
     from parseq_tpu_torch.data.tokenizer import Tokenizer
-    from parseq_tpu_torch.ops import ar_kernel, attention, flash_bwd
+    from parseq_tpu_torch.ops import ar_kernel, flash_bwd
     from parseq_tpu_torch.train.families import get_family
     from parseq_tpu_torch.train.optim import OptimConfig
     from parseq_tpu_torch.train.steps import init_state, make_train_step
@@ -1413,7 +1413,7 @@ def train_phase(dev, card, main_launches):
         shutil.rmtree(tmp, ignore_errors=True)
 
     # One fixed batch, the same weights and dropout bits: one step's gradients
-    # with B4 and under plain_backward().
+    # with B4 and under kernels.plain().
     tok = Tokenizer(charset)
     fixed = {'images': torch.from_numpy(rng.integers(0, 256, (batch_size, 32, 128, 3),
                                                      dtype=np.uint8)).to(dev),
@@ -1428,7 +1428,7 @@ def train_phase(dev, card, main_launches):
         step = make_train_step(family, bundle.cfg, torch.bfloat16, microbatches=mb)
         state = init_state(model, OptimConfig(total_steps=100, batch_size=batch_size))
         gen = torch.Generator(device=dev).manual_seed(7)
-        with (attention.plain_backward() if route == 'plain' else contextlib.nullcontext()):
+        with (kernels.plain() if route == 'plain' else contextlib.nullcontext()):
             before = flash_bwd.launches
             # lr 0 keeps the weights: only the gradients are compared
             state['opt_state'].sched = lambda _: 0.0
@@ -1456,7 +1456,7 @@ def train_phase(dev, card, main_launches):
     times = {'b4': [], 'plain': []}
     torch.cuda.reset_peak_memory_stats()
     for route in ('b4', 'plain', 'plain', 'b4'):
-        with (attention.plain_backward() if route == 'plain' else contextlib.nullcontext()):
+        with (kernels.plain() if route == 'plain' else contextlib.nullcontext()):
             for i in range(STEP_TIMED + 1):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1504,7 +1504,7 @@ def train_phase(dev, card, main_launches):
     print(f'train step B={batch_size} by microbatches [{card}]: '
           + '; '.join(f'{m}: {t:.2f} ms, peak {g:.2f} GiB' for m, (t, g) in sweep.items())
           + f'; {mb}: {b4_ms:.2f} ms, peak {peak:.2f} GiB')
-    info = {'step_ms_b4': b4_ms, 'step_ms_plain_backward': plain_ms,
+    info = {'step_ms_b4': b4_ms, 'step_ms_plain': plain_ms,
             'step_ms_by_microbatches': {m: t for m, (t, _) in sweep.items()},
             'peak_gib_by_microbatches': {m: g for m, (_, g) in sweep.items()},
             'img_per_s_b4': batch_size / b4_ms * 1e3, 'peak_memory_gib': peak,
@@ -1528,15 +1528,15 @@ def _bn_buffers(model):
 def float64_mode():
     """While open, `.float()` leaves a float64 tensor as it is (the port's
     layers take statistics, softmaxes and logits in float32 by `.float()`),
-    and encoder attention takes its plain path (the kernels are bf16 and
-    f32): a float64 model computes in float64 throughout."""
-    from parseq_tpu_torch.ops import attention
+    and every model takes its plain path (kernels.plain(): the kernels are
+    bf16 and f32): a float64 model computes in float64 throughout."""
+    from parseq_tpu_torch import kernels
 
     to_float = torch.Tensor.float
     torch.Tensor.float = lambda self, *a, **k: (self if self.dtype == torch.float64
                                                 else to_float(self, *a, **k))
     try:
-        with attention.force_einsum(), attention.plain_backward():
+        with kernels.plain():
             yield
     finally:
         torch.Tensor.float = to_float

@@ -38,9 +38,7 @@ import time
 
 import torch
 
-from parseq_tpu_torch.models import vit
-from parseq_tpu_torch.models.parseq import PARSeq
-from parseq_tpu_torch.ops import attention
+from parseq_tpu_torch import kernels
 from parseq_tpu_torch.ops.quant import Int8Linear, quantize_bundle
 from parseq_tpu_torch.utils import trace
 from parseq_tpu_torch.utils.config import CONFIG_ROOT, _load, parse_model_args
@@ -80,14 +78,12 @@ def time_forward(fwd, batches, trials, device):
 
 
 def per_image_flops(model, images):
-    """MACs per image through the plain paths: kernels are opaque to the
-    counter, so PARSeq's AR decode runs its scan, the encoder its eager
-    blocks and their attention its einsum. None when counting fails (the
-    number is informational)."""
-    kw = {'use_fused_ar': False} if isinstance(model.module, PARSeq) else {}
+    """MACs per image through the plain paths (kernels.plain()): kernels are
+    opaque to the counter. None when counting fails (the number is
+    informational)."""
     try:
-        with attention.force_einsum(), vit.force_eager_blocks():
-            macs = count_flops(model.module, images, dtype=model.dtype, **kw)
+        with kernels.plain():
+            macs = count_flops(model.module, images, dtype=model.dtype)
     except Exception:  # noqa: BLE001 - flops are informational
         return None
     return macs / images.shape[0]

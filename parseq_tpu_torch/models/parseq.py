@@ -32,15 +32,16 @@ import torch
 from torch import nn
 
 from parseq_tpu_torch.models.vit import ViTConfig, VisionTransformer
-from parseq_tpu_torch.ops import layers
+from parseq_tpu_torch.ops import ar_kernel, layers
 from parseq_tpu_torch.ops.layers import NEG_INF, dropout, layer_norm, linear
 from parseq_tpu_torch.utils import trace
 
 
 @dataclass(frozen=True)
 class PARSeqConfig:
-    """Same fields, defaults and properties as parseq_tpu's PARSeqConfig.
-    The training-only fields are carried so one config dict builds both."""
+    """parseq_tpu's PARSeqConfig, less its `remat` (a JAX training-memory
+    lever the port has no use for): the same defaults and properties. The
+    training-only fields are carried so one config dict builds both."""
 
     num_tokens: int = 97  # len(charset) + 3 specials (EOS/BOS/PAD)
     max_label_length: int = 25
@@ -56,7 +57,6 @@ class PARSeqConfig:
     decode_ar: bool = True
     refine_iters: int = 1
     dropout: float = 0.1
-    remat: bool = False
     shared_perm_dropout: bool = False
     bulk_dropout_bits: bool = True
     bulk_bits_uint8: bool = True
@@ -73,7 +73,6 @@ class PARSeqConfig:
             depth=self.enc_depth,
             num_heads=self.enc_num_heads,
             mlp_ratio=self.enc_mlp_ratio,
-            remat=self.remat,
         )
 
     @property
@@ -318,23 +317,19 @@ class PARSeq(nn.Module):
             logits = self.decoder_head(out)
         return logits
 
-    def forward(self, images, dtype=torch.float32, early_exit=False, use_fused_ar=True):
+    def forward(self, images, dtype=torch.float32):
         """images (B, H, W, 3) NHWC -> logits (B, num_steps, num_classes) f32.
 
-        encode -> AR (or NAR) decode -> refinement. On a CUDA tensor the AR
-        decode of a one-layer decoder runs the fused kernel (ops/ar_kernel.py)
-        on bf16 memory, as the JAX package does on its accelerator; the scan
-        serves the CPU, dec_depth > 1, early_exit and use_fused_ar=False."""
+        encode -> AR (or NAR) decode -> refinement. Where ar_kernel.takes
+        holds (a one-layer decoder on a CUDA tensor, outside kernels.plain())
+        the AR decode runs kernel B1 (ops/ar_kernel.py) on bf16 memory, as
+        the JAX package does on its accelerator; the scan serves the rest."""
         cfg = self.cfg
         memory = self.encode(images.to(dtype))
-        if cfg.decode_ar:
-            if (use_fused_ar and not early_exit and cfg.dec_depth == 1
-                    and memory.device.type == 'cuda'):
-                from parseq_tpu_torch.ops.ar_kernel import ar_decode_fused
-
-                logits = ar_decode_fused(self, memory.to(torch.bfloat16))
-            else:
-                logits = self.ar_decode(memory, dtype, early_exit=early_exit)
+        if ar_kernel.takes(cfg, memory.device):
+            logits = ar_kernel.ar_decode_fused(self, memory.to(torch.bfloat16))
+        elif cfg.decode_ar:
+            logits = self.ar_decode(memory, dtype)
         else:
             logits = self.nar_decode(memory, dtype)
         if cfg.refine_iters:

@@ -14,8 +14,8 @@ Forward semantics: patch_embed -> [cls ;] -> +pos_embed -> pre-LN blocks
 L >= KERNEL_MIN_LEN runs kernel B2 (ops/attention.py).
 
 Where `takes_encoder_kernel` holds (bf16 tokens on a CUDA device, no
-autograd, no int8 weight, shapes that kernel B5 takes: PARSeq-S's L = 128
-encoder in inference), all blocks run as one launch of B5
+autograd, outside kernels.plain(), no int8 weight, shapes that kernel B5
+takes: PARSeq-S's L = 128 encoder in inference), all blocks run as one launch of B5
 (ops/encoder_kernel.py) on operands stacked once and kept between calls;
 everything else runs the eager blocks. B5 wins at every batch, one image
 included: wall ms a call at L 128, D 384, 6 heads, MLP 1536, depth 12,
@@ -34,7 +34,6 @@ take longer on the host.
 
 from __future__ import annotations
 
-import contextlib
 import weakref
 from dataclasses import dataclass
 
@@ -42,28 +41,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from parseq_tpu_torch import kernels
 from parseq_tpu_torch.ops import encoder_kernel, quant
 from parseq_tpu_torch.ops.attention import encoder_self_attention
 from parseq_tpu_torch.ops.layers import layer_norm, mlp
 from parseq_tpu_torch.utils import trace
-
-# True inside force_eager_blocks()
-_EAGER_BLOCKS = False
-
-
-@contextlib.contextmanager
-def force_eager_blocks():
-    """Run every encoder's blocks eagerly while the context is open: for a
-    count of their products (a FLOP counter sees none inside B5) and for
-    comparisons; nothing on the main path uses it."""
-    global _EAGER_BLOCKS
-    old = _EAGER_BLOCKS
-    _EAGER_BLOCKS = True
-    try:
-        yield
-    finally:
-        _EAGER_BLOCKS = old
-
 
 @dataclass(frozen=True)
 class ViTConfig:
@@ -75,7 +57,6 @@ class ViTConfig:
     num_heads: int = 6
     mlp_ratio: float = 4.0
     class_token: bool = False  # PARSeq encoder: False; ViTSTR: True
-    remat: bool = False  # JAX training-memory lever; the port trains without it
 
     @property
     def grid_size(self) -> tuple[int, int]:
@@ -231,13 +212,13 @@ class VisionTransformer(nn.Module):
 def takes_encoder_kernel(device, dtype, shape, num_heads, blocks):
     """Whether `blocks` run as one launch of kernel B5 on tokens of this
     device, dtype and (B, L, D) shape: a CUDA device, bf16, autograd off,
-    outside force_eager_blocks(), no block weight an int8 Int8Weight, and
+    kernels.enabled(), no block weight an int8 Int8Weight, and
     shapes the kernel takes (encoder_kernel.takes). Anything else (the CPU,
     training, f32, the int8 path, ViTSTR's L = 197, widths other than 64 a
     head up to 512) runs the eager blocks."""
     _, L, D = shape
     if (device.type != 'cuda' or dtype != torch.bfloat16 or torch.is_grad_enabled()
-            or _EAGER_BLOCKS):
+            or not kernels.enabled()):
         return False
     if any(quant.is_quantized(lin.weight) for b in blocks
            for lin in (b.attn.qkv, b.attn.proj, b.mlp.fc1, b.mlp.fc2)):

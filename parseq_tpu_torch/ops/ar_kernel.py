@@ -2,11 +2,11 @@
 
 `ar_decode_fused(model, memory)` runs all num_steps greedy decode steps in
 one launch of the hand-written CUDA kernel `csrc/ar_decode.cu` (kernel B1
-in ROADMAP.md). `ar_decode_fused_reference` is the same computation in
-plain PyTorch, step by step; the wrapper uses it only for a tensor on the
-CPU. A CUDA tensor goes to the kernel or raises. check_model, check_run and
-CHECK_LIMITS are the kernel's card check, shared by chip_smoke.py and the
-gpu tests.
+in ROADMAP.md); `takes` is its gate in PARSeq.forward.
+`ar_decode_fused_reference` is the same computation in plain PyTorch, step
+by step; the wrapper uses it only for a tensor on the CPU. A CUDA tensor
+goes to the kernel or raises. check_model, check_run and CHECK_LIMITS are
+the kernel's card check, shared by chip_smoke.py and the gpu tests.
 
 Numerics are those of the JAX kernel, which both versions follow:
   1. the embedding row is bf16(sqrt(D) * w); the f32 positional row is
@@ -30,6 +30,7 @@ import math
 import numpy as np
 import torch
 
+from parseq_tpu_torch import kernels
 from parseq_tpu_torch.kernels.build import CSRC, load_library
 from parseq_tpu_torch.ops import layers
 from parseq_tpu_torch.utils import trace
@@ -271,6 +272,15 @@ def library():
         lib.parseq_cuda_error_string.argtypes = [ctypes.c_int]
         lib.parseq_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def takes(cfg, device):
+    """Whether PARSeq.forward decodes with kernel B1 for a config `cfg`
+    (PARSeqConfig) and memory on `device`: greedy AR decoding, a one-layer
+    decoder, a CUDA device and kernels.enabled(). Elsewhere the scan
+    (PARSeq.ar_decode) decodes."""
+    return (cfg.decode_ar and cfg.dec_depth == 1 and torch.device(device).type == 'cuda'
+            and kernels.enabled())
 
 
 @torch.no_grad()

@@ -1,18 +1,18 @@
 """Encoder self-attention, the fused no-split attention kernel B2 and the
 head-split attention kernel B3 (port of parseq_tpu/ops/attention.py:
 encoder_self_attention, fused_attention_nosplit, _reference_nosplit,
-fused_attention, _reference_attention, force_einsum, _mha_flashbwd).
+fused_attention, _reference_attention, _mha_flashbwd).
 
-`encoder_self_attention` routes as the JAX package does: sequences shorter
-than KERNEL_MIN_LEN go through plain einsum attention (`layers.mha`);
-longer ones take the packed q|k|v projection and go to
+`encoder_self_attention` takes the packed q|k|v projection and routes it,
+with the JAX package's gate: sequences of at least KERNEL_MIN_LEN go to
 `fused_attention_nosplit`, which launches the hand-written CUDA kernel
 `csrc/attention.cu` on a CUDA tensor (or raises) and computes its plain
 PyTorch version, `fused_attention_nosplit_reference`, on a CPU tensor.
-Under autograd (training), a sequence shorter than KERNEL_MIN_LEN whose
-shape the backward kernel takes (L a multiple of 8, dh 32 or 64) sends the
-packed projection to `flash_bwd.attention_flashbwd`, the counterpart of the
-JAX package's `_mha_flashbwd`: einsum forward, kernel-B4 backward.
+Under autograd (training), a shorter sequence whose shape the backward
+kernel takes (L a multiple of 8, dh 32 or 64) goes to
+`flash_bwd.attention_flashbwd`, the counterpart of the JAX package's
+`_mha_flashbwd`: einsum forward, kernel-B4 backward. Everything else, and
+everything inside `kernels.plain()`, runs `layers.packed_self_attention`.
 
 `fused_attention` (B3) is the same computation on the head-split (BH, L, dh)
 layout; the JAX package calls it from no model, only from its tests. Both
@@ -34,14 +34,14 @@ to max|plain| against CHECK_LIMITS.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import math
 
 import torch
 
+from parseq_tpu_torch import kernels
 from parseq_tpu_torch.kernels.build import CSRC, load_library
-from parseq_tpu_torch.ops import flash_bwd, layers, quant
+from parseq_tpu_torch.ops import flash_bwd, layers
 
 # Kernel gate, as in the JAX package (its value was measured on a TPU; the
 # port keeps it until its own gate is measured on the H100).
@@ -53,37 +53,6 @@ KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # q, k, v and o, all of one typ
 # by fused_attention (B3).
 launches = 0
 split_launches = 0
-
-# Training attention below KERNEL_MIN_LEN takes the kernel-B4 backward unless
-# plain_backward() is open.
-_FLASH_BWD = True
-
-
-@contextlib.contextmanager
-def force_einsum():
-    """Route every encoder_self_attention through the plain einsum path while
-    the context is open (for comparisons; nothing on the main path uses it)."""
-    global KERNEL_MIN_LEN
-    old = KERNEL_MIN_LEN
-    KERNEL_MIN_LEN = 10 ** 9
-    try:
-        yield
-    finally:
-        KERNEL_MIN_LEN = old
-
-
-@contextlib.contextmanager
-def plain_backward():
-    """Route training encoder self-attention through plain autograd of
-    layers.mha while the context is open (for comparisons; nothing on the
-    main path uses it)."""
-    global _FLASH_BWD
-    old = _FLASH_BWD
-    _FLASH_BWD = False
-    try:
-        yield
-    finally:
-        _FLASH_BWD = old
 
 
 def _attend(q, k, v, scale):
@@ -298,29 +267,25 @@ def fused_attention(q, k, v, scale):
 
 def encoder_self_attention(x, in_weight, in_bias, out_weight, out_bias, num_heads, *,
                            dropout_rate=0.0, rng=None):
-    """layers.mha(x, x, x) with no mask. At L >= KERNEL_MIN_LEN the packed
-    q|k|v projection feeds kernel B2 through strided views (no copies);
-    below it, under autograd, it feeds attention_flashbwd (kernel B4 in the
-    backward) when the kernel takes the shape. With attention-probability
-    dropout (dropout_rate > 0 and a generator `rng`) it is layers.mha with
-    that dropout: neither kernel drops probabilities. With int8 weights
-    (ops/quant.py) the packed q|k|v projection is one int8 product at every
-    length, feeding B2 at L >= KERNEL_MIN_LEN as the bf16 one does."""
+    """layers.mha(x, x, x) with no mask, on one packed q|k|v projection
+    (one int8 product where the weights are int8, ops/quant.py). Unless
+    kernels.plain() is open, L >= KERNEL_MIN_LEN feeds kernel B2 through
+    strided views of it (no copies), and a shorter sequence under autograd
+    feeds attention_flashbwd (kernel B4 in the backward) where that kernel
+    takes the shape; anything else is layers.packed_self_attention. With
+    attention-probability dropout (dropout_rate > 0 and a generator `rng`)
+    it is layers.mha with that dropout: no kernel drops probabilities."""
     if dropout_rate > 0.0 and rng is not None:
         return layers.mha(x, x, x, in_weight, in_bias, out_weight, out_bias, num_heads=num_heads,
                           dropout_rate=dropout_rate, rng=rng)
     B, L, D = x.shape
-    if L < KERNEL_MIN_LEN:
-        if quant.is_quantized(in_weight):  # int8: one packed product, then mha's attention
-            o = layers.packed_self_attention(layers.linear(x, in_weight, in_bias), num_heads)
-            return layers.linear(o, out_weight, out_bias)
-        training = torch.is_grad_enabled() and (x.requires_grad or in_weight.requires_grad)
-        if training and _FLASH_BWD and flash_bwd.kernel_takes(L, D // num_heads):
-            qkv = layers.linear(x, in_weight, in_bias)
-            o = flash_bwd.attention_flashbwd(qkv, num_heads, 1.0 / math.sqrt(D // num_heads))
-            return layers.linear(o, out_weight, out_bias)
-        return layers.mha(x, x, x, in_weight, in_bias, out_weight, out_bias, num_heads=num_heads)
+    scale = 1.0 / math.sqrt(D // num_heads)
     qkv = layers.linear(x, in_weight, in_bias)
-    o = fused_attention_nosplit(qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:], num_heads,
-                                1.0 / math.sqrt(D // num_heads))
+    if kernels.enabled() and L >= KERNEL_MIN_LEN:
+        o = fused_attention_nosplit(qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:], num_heads,
+                                    scale)
+    elif kernels.enabled() and qkv.requires_grad and flash_bwd.kernel_takes(L, D // num_heads):
+        o = flash_bwd.attention_flashbwd(qkv, num_heads, scale)
+    else:
+        o = layers.packed_self_attention(qkv, num_heads)
     return layers.linear(o, out_weight, out_bias)

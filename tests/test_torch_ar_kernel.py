@@ -13,10 +13,13 @@ it: there the JAX comparisons skip and the `gpu` cases run
 (`python -m pytest -m gpu tests/test_torch_ar_kernel.py`).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
 
+from parseq_tpu_torch import kernels
 from parseq_tpu_torch.models.parseq import PARSeq, PARSeqConfig
 from parseq_tpu_torch.ops import ar_kernel
 from parseq_tpu_torch.utils.convert import state_dict_from_jax
@@ -82,6 +85,43 @@ def test_cpu_tensor_takes_plain_version(setup):
                                             (300, 132, 4), (512, 132, 4), (2000, 132, 8)])
 def test_rows_per_block_fills_one_wave(batch, sms, rows):
     assert ar_kernel.rows_per_block(batch, sms) == rows
+
+
+@pytest.mark.parametrize('change,decoded', [
+    ({}, True),  # PARSeq-S's read on the card
+    ({'device': 'cuda:0'}, True),
+    ({'device': 'cpu'}, False),
+    ({'dec_depth': 2}, False),
+    ({'decode_ar': False}, False),  # the NAR decode
+    ({'plain': True}, False),  # inside kernels.plain() (comparisons, the FLOP count)
+], ids=repr)
+def test_gate_decision_table(change, decoded):
+    """ar_kernel.takes, B1's gate in PARSeq.forward: greedy AR decoding, a
+    one-layer decoder, a CUDA device, outside kernels.plain()."""
+    case = {'device': torch.device('cuda'), 'dec_depth': 1, 'decode_ar': True, 'plain': False,
+            **change}
+    cfg = PARSeqConfig(dec_depth=case['dec_depth'], decode_ar=case['decode_ar'])
+    with kernels.plain() if case['plain'] else contextlib.nullcontext():
+        assert ar_kernel.takes(cfg, case['device']) is decoded
+
+
+@pytest.mark.parametrize('takes', [True, False])
+def test_forward_decodes_where_the_gate_says(monkeypatch, takes):
+    """PARSeq.forward asks ar_kernel.takes and finds ar_decode_fused on the
+    module when it calls it (a wrapper set on the module attribute sees the
+    call), with bf16 memory; elsewhere it calls its own ar_decode."""
+    model = PARSeq(PARSeqConfig(**KW)).eval()
+    calls = []
+    real_fused, real_scan = ar_kernel.ar_decode_fused, model.ar_decode
+    monkeypatch.setattr(ar_kernel, 'takes', lambda cfg, device: takes)
+    monkeypatch.setattr(ar_kernel, 'ar_decode_fused', lambda m, memory: (
+        calls.append(('fused', memory.dtype)) or real_fused(m, memory)))
+    monkeypatch.setattr(model, 'ar_decode', lambda memory, dtype: (
+        calls.append(('scan', dtype)) or real_scan(memory, dtype)))
+    with torch.no_grad():
+        logits = model(torch.zeros(2, 32, 64, 3))
+    assert calls == [('fused', torch.bfloat16) if takes else ('scan', torch.float32)]
+    assert logits.shape == (2, model.cfg.num_steps, model.cfg.num_classes)
 
 
 # The card check's faults, planted in the plain version at PARSeq-S's full

@@ -9,13 +9,15 @@ it: there the JAX comparisons skip and the `gpu` cases run
 (`python -m pytest --noconftest -m gpu tests/test_torch_attention.py`).
 """
 
+import contextlib
 import math
 
 import numpy as np
 import pytest
 import torch
 
-from parseq_tpu_torch.ops import attention, layers
+from parseq_tpu_torch import kernels
+from parseq_tpu_torch.ops import attention, flash_bwd, layers, quant
 
 
 @pytest.fixture(scope='module')
@@ -76,10 +78,11 @@ def test_packed_views_match_contiguous_operands():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize('route', ['kernel_branch', 'force_einsum'])
+@pytest.mark.parametrize('route', ['kernel_branch', 'plain'])
 def test_encoder_self_attention_matches_jax_mha(jax_attention, route):
     """At L = 197 >= KERNEL_MIN_LEN the CPU takes B2's plain version (or,
-    under force_einsum, layers.mha); both equal JAX layers.mha at f32."""
+    inside kernels.plain(), layers.packed_self_attention of the packed
+    projection); both equal JAX layers.mha at f32."""
     import jax
     import jax.numpy as jnp
 
@@ -95,16 +98,63 @@ def test_encoder_self_attention_matches_jax_mha(jax_attention, route):
     b_out = torch.from_numpy(np.array(p['out']['b']))
     args = (torch.from_numpy(x), w_in, b_in, w_out, b_out, h)
     before = attention.launches
-    if route == 'force_einsum':
-        with attention.force_einsum():
+    if route == 'plain':
+        with kernels.plain():
             got = attention.encoder_self_attention(*args)
-        assert attention.KERNEL_MIN_LEN == 192
-        torch.testing.assert_close(got, layers.mha(args[0], args[0], args[0], *args[1:5],
-                                                   num_heads=h), rtol=0, atol=0)
+        assert attention.KERNEL_MIN_LEN == 192 and kernels.enabled()
+        o = layers.packed_self_attention(layers.linear(args[0], w_in, b_in), h)
+        torch.testing.assert_close(got, layers.linear(o, w_out, b_out), rtol=0, atol=0)
     else:
         got = attention.encoder_self_attention(*args)
     assert attention.launches == before  # no kernel launch for a CPU tensor
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+_B2_CASE = dict(L=197, heads=2, grad=False, plain=False, dropout=False, int8=False)
+
+
+@pytest.mark.parametrize('change,route', [
+    ({}, 'B2'),  # ViTSTR-S's and ABINet's reads
+    ({'grad': True}, 'B2'),  # training at L >= KERNEL_MIN_LEN: B2 with its plain backward
+    ({'int8': True}, 'B2'),  # the int8 serving path
+    ({'plain': True}, 'packed'),
+    ({'dropout': True}, 'mha'),  # no kernel drops attention probabilities
+    ({'L': 24, 'grad': True}, 'B4'),  # PARSeq-S training (L = 128 there)
+    ({'L': 24, 'grad': True, 'heads': 4}, 'packed'),  # dh 16: the kernel does not take it
+    ({'L': 24, 'grad': True, 'plain': True}, 'packed'),
+    ({'L': 20, 'grad': True}, 'packed'),  # L not a multiple of 8
+    ({'L': 24}, 'packed'),  # inference below KERNEL_MIN_LEN
+    ({'L': 24, 'int8': True}, 'packed'),
+    ({'L': 24, 'grad': True, 'dropout': True}, 'mha'),
+], ids=repr)
+def test_encoder_self_attention_decision_table(monkeypatch, change, route):
+    """encoder_self_attention's gates of B2 (L >= KERNEL_MIN_LEN) and B4
+    (autograd, and a shape the backward kernel takes), both outside
+    kernels.plain(), on one packed projection; layers.mha only for
+    attention-probability dropout."""
+    case = {**_B2_CASE, **change}
+    calls = []
+
+    def record(name, fn):
+        return lambda *a, **k: calls.append(name) or fn(*a, **k)
+
+    monkeypatch.setattr(attention, 'fused_attention_nosplit',
+                        record('B2', attention.fused_attention_nosplit))
+    monkeypatch.setattr(flash_bwd, 'attention_flashbwd',
+                        record('B4', flash_bwd.attention_flashbwd))
+    monkeypatch.setattr(layers, 'packed_self_attention',
+                        record('packed', layers.packed_self_attention))
+    monkeypatch.setattr(layers, 'mha', record('mha', layers.mha))
+    L, D = case['L'], 64
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, L, D, generator=gen).requires_grad_(case['grad'])
+    w = [torch.randn(s, generator=gen) * 0.1 for s in ((3 * D, D), (3 * D,), (D, D), (D,))]
+    if case['int8']:
+        w[0] = quant.Int8Weight(*quant.quantize_weight(w[0]))
+    drop = dict(dropout_rate=0.1, rng=torch.Generator().manual_seed(1)) if case['dropout'] else {}
+    with kernels.plain() if case['plain'] else contextlib.nullcontext():
+        y = attention.encoder_self_attention(x, *w, case['heads'], **drop)
+    assert calls == [route] and y.shape == x.shape
 
 
 def test_other_devices_raise():

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from parseq_tpu_torch import kernels
 from parseq_tpu_torch.models import vit
 from parseq_tpu_torch.ops import encoder_kernel, quant
 from parseq_tpu_torch.ops.layers import layer_norm
@@ -79,12 +80,12 @@ _ROUTED = dict(device='cuda', dtype=torch.bfloat16, grad=False, B=512, L=128, D=
     ({'D': 768}, False),  # PARSeq-B
     ({'int8': True}, False),
     ({'B': 1}, True),  # B5 wins at every batch (the sweep in models/vit.py)
-    ({'forced': True}, False),  # inside vit.force_eager_blocks() (the FLOP count)
+    ({'forced': True}, False),  # inside kernels.plain() (the FLOP count)
 ], ids=lambda v: repr(v) if isinstance(v, dict) else None)
 def test_gate_decision_table(no_library, change, routed):
     case = {**_ROUTED, **change}
     blocks = _blocks(case['D'], int8=case['int8'])
-    forced = vit.force_eager_blocks() if case['forced'] else contextlib.nullcontext()
+    forced = kernels.plain() if case['forced'] else contextlib.nullcontext()
     with torch.set_grad_enabled(case['grad']), forced:
         got = vit.takes_encoder_kernel(torch.device(case['device']), case['dtype'],
                                        (case['B'], case['L'], case['D']), case['D'] // 64,
@@ -394,7 +395,7 @@ def test_routed_parseq_s_matches_its_eager_blocks(bench, cuda_device):
         assert encoder_kernel.launches == before + 1
         assert torch.equal(routed, layer_norm(fused, enc.norm.weight, enc.norm.bias))
         ar = ar_kernel.ar_decode_fused(model, routed)
-        with vit.force_eager_blocks():
+        with kernels.plain():
             eager = enc(images.to(torch.bfloat16))
         f32 = enc(images)
         assert encoder_kernel.launches == before + 1

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from parseq_tpu_torch import kernels
 from parseq_tpu_torch.ops import attention, flash_bwd, layers
 
 SHAPES = [(4, 3, 16, 8), (2, 6, 128, 64), (3, 2, 24, 16)]  # tests/test_flash_bwd.py
@@ -93,8 +94,8 @@ def test_backward_writes_into_strided_views():
 
 def test_encoder_self_attention_routes_training_through_b4(monkeypatch):
     """Under autograd at L < KERNEL_MIN_LEN with dh = 32 the packed
-    projection goes to attention_flashbwd; plain_backward() and no_grad take
-    layers.mha; all agree to f32 rounding in outputs and gradients."""
+    projection goes to attention_flashbwd; kernels.plain() and no_grad take
+    layers.packed_self_attention; all agree to f32 rounding in outputs and gradients."""
     calls = []
     real = flash_bwd.attention_flashbwd
     monkeypatch.setattr(flash_bwd, 'attention_flashbwd',
@@ -111,7 +112,7 @@ def test_encoder_self_attention_routes_training_through_b4(monkeypatch):
 
     y1, g1 = run()
     assert calls == [(B, L, 3 * D)]
-    with attention.plain_backward():
+    with kernels.plain():
         y2, g2 = run()
     assert len(calls) == 1
     with torch.no_grad():

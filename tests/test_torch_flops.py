@@ -2,8 +2,9 @@
 fvcore's MAC convention), on the cases of tests/test_flops.py and against
 the JAX package's jaxpr walk for whole models.
 
-The model counts run both benches' way: PARSeq through its plain AR scan,
-encoder attention through its einsum (attention.force_einsum), per image.
+The model counts run both benches' way, per image: the port's through its
+plain paths (kernels.plain(), in cli.bench's per_image_flops), the JAX
+package's through PARSeq's AR scan and its attention.force_einsum().
 The JAX side counts abstract parameters (jax.eval_shape of the init), so
 no weights are drawn. Its TRBA grid sample is monkeypatched to the gather
 path: the default one-hot form is a TPU layout workaround whose einsum the
