@@ -9,7 +9,8 @@ from a seed), in phases, each printing its result:
   1. environment: versions, nvcc, optional modules, card name and power
      limit, g++'s path, whether jpeglib.h is there, native_build.status();
   2. build: kernels B1 (csrc/ar_decode.cu), B2 and B3 (csrc/attention.cu),
-     B4 (csrc/flash_bwd.cu) and B5 (csrc/encoder_blocks.cu) with nvcc for
+     B4 (csrc/flash_bwd.cu), B5 (csrc/encoder_blocks.cu) and the eval-mode
+     batch-norm pass (csrc/bn_act.cu) with nvcc for
      sm_90a, and the native host helpers (utils/editdist.cpp,
      data/native/lmdb_reader.cpp and jpeg_decode.cpp) with g++ where the
      toolchain is, all compiles started together;
@@ -44,7 +45,11 @@ from a seed), in phases, each printing its result:
      block hold rows), on weights where attention decides the output, its
      difference held relative to what the blocks add to their input, its
      launch count set to 0 before and risen after, and against the port's
-     eager blocks as information;
+     eager blocks as information; the batch-norm pass (ops/cnn.py:bn_act)
+     at ABINet's maps (512, 32, 32, 128) and (512, 512, 8, 32), bf16,
+     channels-last and NCHW, random statistics, in its four forms (batch
+     norm alone, + ReLU, + identity shortcut, + normalised shortcut): one
+     launch a call, bit for bit the same call inside kernels.plain();
   4. main paths (inference): hub.parseq(), hub.vitstr(),
      hub.parseq_patch16_224() and hub.abinet() on cuda in bf16 read batches
      of 1, 7 and 256 NHWC images; each model's kernel launch counts are set
@@ -54,10 +59,13 @@ from a seed), in phases, each printing its result:
      apart, as launches_bench); bf16 kernel
      path vs the f32 plain path; then hub.vitstr(dtype=torch.float32) reads
      B = 1 and 7 through B2 in f32 (its count risen), its logits against the
-     f32 plain path; then the CNN families: hub.crnn(), hub.trba() and
-     create_model('trbc') read B = 1, 7 and 256 in bf16 (they run no TPU
-     kernel: convolutions and products are library calls, the LSTMs step
-     loops); before those reads (and the bias raise they need), each one's
+     f32 plain path; the batch-norm pass's count, set to 0 with the
+     others, must rise by 53 a forward in ABINet's reads (45 in ResNet45, 8
+     in the U-Net) and stay 0 in the others'; then the CNN families:
+     hub.crnn(), hub.trba() and create_model('trbc') read B = 1, 7 and 256
+     in bf16 (they run no TPU kernel: convolutions and products are library
+     calls, the LSTMs step loops; their batch norms launch the batch-norm
+     pass, whose count must rise); before those reads (and the bias raise they need), each one's
      B = 7 bf16 logits against its f32 path (TRBA teacher-forced on its f32
      greedy picks), max |difference| and the agreeing margin relative to
      max|f32 logits| within the model's own limits (CNN_LIMITS), a planted
@@ -84,7 +92,9 @@ from a seed), in phases, each printing its result:
      each kernel vs its plain version and one
      PyTorch library call computing the same function where there is one,
      beside the kernel's bound (B2 at L = 128, 196, 197, 256 and B = 256,
-     at L = 197 and B = 1, and in f32 at L = 197; B3 at L = 128, 197); each
+     at L = 197 and B = 1, and in f32 at L = 197; B3 at L = 128, 197; the
+     batch-norm pass with ReLU and with the identity shortcut at
+     BN_SHAPES, the `kernels` line's entry `bn_act`); each
      model's forward in images/s, the CNN families' too;
   8. main paths of evaluation and benchmarking: a synthetic LMDB of
      PIL-rendered words (PNG), one database per benchmark set at its
@@ -238,6 +248,11 @@ B1_ROWS = (1, 2, 4, 8)
 B1_RAGGED_BATCH = 9
 B1_MEMORY_ROWS = (1, 128, 196)
 B1_TIMED_BATCHES = (1, 7, TIMED_BATCH)
+# csrc/bn_act.cu, checked and timed at ABINet's largest batch-norm maps at B =
+# 512: ResNet45's stem and first layer, and its last two layers
+BN_SHAPES = ((512, 32, 32, 128), (512, 512, 8, 32))
+BN_FORMS = ('plain', 'relu', 'identity', 'normed')
+ABINET_BN_LAUNCHES = 53  # a read forward: 45 in ResNet45, 8 in the U-Net
 # B1 also at every batch phase 10 serves PARSeq-S in: the rung ladder of
 # serve.server up to SERVE_MAX_BATCH, those not in BATCHES already.
 # B2 and B3 vs plain: the shared card check of ops/attention.py (inputs
@@ -512,6 +527,39 @@ def b2_bound(B, L, h, D, elt=2):
                                           else {'f32_flops': flops}))
 
 
+def bn_bound(B, C, H, W, shortcut=False):
+    """y read and out written once, and the shortcut read where there is
+    one, in bf16."""
+    return bound(B * C * H * W * 2 * (2 + shortcut))
+
+
+def bn_operands(shape, gen, dev):
+    """y and a shortcut r of `shape` in bf16, channels-last (the layout
+    cuDNN returns for NHWC images), and two eval-mode batch norms with
+    random, non-identity statistics: csrc/bn_act.cu's check and timing."""
+    y, r = (torch.randn(shape, generator=gen, device=dev).mul_(a).to(torch.bfloat16)
+            .contiguous(memory_format=torch.channels_last) for a in (1, 2))
+    bns = []
+    for _ in range(2):
+        bn = torch.nn.BatchNorm2d(shape[1]).to(dev).eval()
+        C = shape[1]
+        with torch.no_grad():
+            bn.running_mean.copy_(torch.randn(C, generator=gen, device=dev) * 0.5)
+            bn.running_var.copy_(torch.rand(C, generator=gen, device=dev) * 1.5 + 0.5)
+            bn.weight.copy_(1 + torch.randn(C, generator=gen, device=dev) * 0.3)
+            bn.bias.copy_(torch.randn(C, generator=gen, device=dev) * 0.5)
+        bns.append(bn)
+    return y, r, *bns
+
+
+def bn_form(form, r, bn_r):
+    """(relu, residual, residual_bn) of cnn.bn_act's forms: the batch norm
+    alone (CRNN's, TRBA's), with the ReLU, with the identity shortcut, with
+    a normalised shortcut (a downsampling block)."""
+    return {'plain': (False, None, None), 'relu': (True, None, None),
+            'identity': (True, r, None), 'normed': (True, r, bn_r)}[form]
+
+
 def b4_bound(B, h, L, dh, elt=2):
     """q, k, v, dO read once, dq, dk, dv written once; QK^T, dO V^T, P^T dO,
     dS K, dS^T Q on inputs of the operands' type."""
@@ -595,7 +643,7 @@ def main():
     from parseq_tpu_torch.kernels.build import find_nvcc
     from parseq_tpu_torch.models.abinet import ABINet
     from parseq_tpu_torch.models.parseq import PARSeq, PARSeqConfig
-    from parseq_tpu_torch.ops import ar_kernel, attention, encoder_kernel, flash_bwd
+    from parseq_tpu_torch.ops import ar_kernel, attention, cnn, encoder_kernel, flash_bwd
     from parseq_tpu_torch.serve.server import _rungs
     from parseq_tpu_torch.utils import metrics, native_build
     from parseq_tpu_torch.utils.registry import create_model
@@ -618,13 +666,14 @@ def main():
     print(f'g++ {toolchain["g++"]}; jpeglib.h present: {toolchain["jpeglib.h"]}; '
           f'native_build.status() {json.dumps(toolchain)}')
 
-    phase('2 build (B1, B2 and B3, B4, B5 with nvcc; the native host helpers with g++; '
-          'in parallel)')
+    phase('2 build (B1, B2 and B3, B4, B5, the batch-norm pass with nvcc; the native host '
+          'helpers with g++; in parallel)')
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(7) as pool:
+    with ThreadPoolExecutor(8) as pool:
         libs = list(pool.map(lambda build: build(), (ar_kernel.library, attention.library,
                                                      flash_bwd.library, encoder_kernel.library,
-                                                     metrics.load, native.load, native.load_jpeg)))
+                                                     cnn.library, metrics.load, native.load,
+                                                     native.load_jpeg)))
     print(f'built {", ".join(lib._name for lib in libs if lib is not None)} in '
           f'{time.perf_counter() - t0:.1f} s; native helpers '
           f'{json.dumps(native_build.status()["helpers"])}')
@@ -793,6 +842,33 @@ def main():
                 msg += f'; vs the eager blocks {float((got.float() - eager).abs().max()):.3e}'
             print(msg + ' ok')
 
+    bn_gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    with torch.inference_mode():
+        for shape in BN_SHAPES:
+            y, r, bn, bn_r = bn_operands(shape, bn_gen, dev)
+            for layout in (torch.channels_last, torch.contiguous_format):
+                y, r = y.contiguous(memory_format=layout), r.contiguous(memory_format=layout)
+                for form in BN_FORMS:
+                    relu, residual, residual_bn = bn_form(form, r, bn_r)
+                    if not cnn.takes_kernel(y, bn, residual, residual_bn):
+                        raise AssertionError(f'bn_act {shape} {form}: the kernel\'s gate says no')
+                    before = cnn.launches
+                    got = cnn.bn_act(y, bn, relu, residual, residual_bn)
+                    with kernels.plain():
+                        want = cnn.bn_act(y, bn, relu, residual, residual_bn)
+                    torch.cuda.synchronize()
+                    if cnn.launches != before + 1 or not (
+                            got.stride() == want.stride()
+                            and torch.equal(got.view(torch.int16), want.view(torch.int16))):
+                        err = float((got.float() - want.float()).abs().max())
+                        raise AssertionError(
+                            f'bn_act {shape} {form} {layout}: launches {cnn.launches - before}, '
+                            f'max |kernel - plain| {err} (bit for bit expected)')
+            del y, r, got, want
+    print(f'bn_act (csrc/bn_act.cu) at {BN_SHAPES} bf16, channels-last and NCHW, forms '
+          f'{BN_FORMS}, random statistics: one launch a call, bit for bit the separate calls '
+          f'inside kernels.plain() ok')
+
     phase('4 main paths on cuda, bf16 (inference)')
     bundles = {
         'parseq': hub.parseq(seed=SEED),
@@ -800,7 +876,7 @@ def main():
         'parseq-patch16-224': hub.parseq_patch16_224(seed=SEED),
         'abinet': hub.abinet(seed=SEED),
     }
-    main_launches = {'B1': 0, 'B2': 0, 'B3': 0, 'B4': 0, 'B5': 0}
+    main_launches = {'B1': 0, 'B2': 0, 'B3': 0, 'B4': 0, 'B5': 0, 'BN': 0}
     images = {}
     for name, bundle in bundles.items():
         module = bundle.module
@@ -815,9 +891,10 @@ def main():
         ar_kernel.launches = 0
         attention.launches = 0
         encoder_kernel.launches = 0
+        cnn.launches = 0
         results = {B: bundle.read(x) for B, x in batches.items()}
         launches = {'B1': ar_kernel.launches, 'B2': attention.launches,
-                    'B5': encoder_kernel.launches}
+                    'B5': encoder_kernel.launches, 'BN': cnn.launches}
         # B5 takes PARSeq-S's L = 128 encoder; ViTSTR's 197 and patch16-224's
         # 196 tokens keep the eager blocks
         needs = {'parseq': ('B1', 'B5'), 'vitstr': ('B2',), 'parseq-patch16-224': ('B1', 'B2'),
@@ -829,6 +906,13 @@ def main():
         if 'B5' not in needs and launches['B5']:
             raise AssertionError(f'{name}: launched kernel B5 {launches["B5"]} times, '
                                  f'outside the shapes it takes')
+        # ABINet's batch norms, shortcuts and ReLUs: csrc/bn_act.cu at each
+        # site of each read forward; the transformers have no batch norm
+        want_bn = ABINET_BN_LAUNCHES * len(batches) if isinstance(module, ABINet) else 0
+        if launches['BN'] != want_bn:
+            raise AssertionError(f'{name}: launched the batch-norm pass {launches["BN"]} times '
+                                 f'in {len(batches)} reads, expected {want_bn}')
+        main_launches['BN'] += launches['BN']
         for B, (labels, confs) in results.items():
             if not len(labels) == len(confs) == B:
                 raise AssertionError(f'{name}: read returned {len(labels)} labels for {B} images')
@@ -889,7 +973,7 @@ def main():
     cnn_bundles = {'crnn': hub.crnn(seed=SEED), 'trba': hub.trba(seed=SEED),
                    'trbc': create_model('trbc', seed=SEED)}
     for name, bundle in cnn_bundles.items():
-        read_cnn_family(name, bundle, rng)
+        main_launches['BN'] += read_cnn_family(name, bundle, rng)
 
     phase(f'5 main path on cuda: PARSeq-S training through cli.train [{card}]')
     train_info = train_phase(dev, card, main_launches)
@@ -979,6 +1063,22 @@ def main():
               f'{bench["b5_ms"]:.4f} ms, plain {b5_plain_ms:.4f} ms, library '
               f'(nn.TransformerEncoder) {bench["library_ms"]:.4f} ms, eager blocks '
               f'{bench["eager_ms"]:.4f} ms, bound {b5_ms[0]:.4f} ms ({b5_ms[1]})')
+
+        def plain_bn_act(*args):
+            with kernels.plain():
+                return cnn.bn_act(*args)
+
+        for shape in BN_SHAPES:
+            y, r, bn, bn_r = bn_operands(shape, bn_gen, dev)
+            for form in ('relu', 'identity'):
+                args = (y, bn, *bn_form(form, r, bn_r))
+                ms = timed['BN', shape, form] = tuple(
+                    cuda_median_ms(fn, calls=BACK_TO_BACK)
+                    for fn in (lambda: cnn.bn_act(*args), lambda: plain_bn_act(*args)))
+                print(f'bn_act {shape} bf16 channels-last, {form} [{card}]: kernel {ms[0]:.4f} '
+                      f'ms, plain (the separate calls) {ms[1]:.4f} ms, bound '
+                      f'{bn_bound(*shape, form == "identity")[0]:.4f} ms')
+            del y, r
     for B, h, L, dh in B4_SHAPES:
         *parts, do, dq, dk, dv, scale = flash_bwd.check_operands(B, h, L, dh, gen)
         with torch.inference_mode():
@@ -1117,6 +1217,18 @@ def main():
          'library_ms': bench['library_ms'],
          'at': f'B={TIMED_BATCH} (L, D, heads, MLP)=(128, 384, 6, 1536) depth {B5_DEPTH} bf16 '
                f'(PARSeq-S encoder)'},
+        {'name': 'bn_act', 'route': 'cuda', 'source': 'parseq_tpu_torch/csrc/bn_act.cu',
+         'replaces': None, 'launches': main_launches['BN'], 'max_abs_err': 0.0,
+         'ms': timed['BN', BN_SHAPES[0], 'relu'][0],
+         'plain_ms': timed['BN', BN_SHAPES[0], 'relu'][1],
+         'bound_ms': bn_bound(*BN_SHAPES[0])[0], 'bound_us': bn_bound(*BN_SHAPES[0])[0] * 1e3,
+         'bound_by': bn_bound(*BN_SHAPES[0])[1], 'library_ms': None,
+         'at': f'{BN_SHAPES[0]} bf16 channels-last, batch norm + ReLU (ABINet\'s ResNet45 stem)',
+         'other_shapes': [{'at': f'{shape} {form}', 'ms': timed['BN', shape, form][0],
+                           'plain_ms': timed['BN', shape, form][1],
+                           'bound_ms': bn_bound(*shape, form == 'identity')[0]}
+                          for shape in BN_SHAPES for form in ('relu', 'identity')
+                          if (shape, form) != (BN_SHAPES[0], 'relu')]},
     ]}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
@@ -1173,8 +1285,9 @@ def read_cnn_family(name, bundle, rng):
     """A CNN family's B = 7 bf16 logits against its f32 path within its own
     limits, which a planted fault must fail, and its f32 path on the card
     against the CPU's; then it reads B = 1, 7 and 256 in bf16 on the card,
-    launching no TPU kernel."""
-    from parseq_tpu_torch.ops import ar_kernel, attention
+    launching no TPU kernel and, at its batch norms, csrc/bn_act.cu: returns
+    that kernel's launches in the reads."""
+    from parseq_tpu_torch.ops import ar_kernel, attention, cnn
 
     module, tok = bundle.module, bundle.tokenizer
     ctc = name != 'trba'
@@ -1218,7 +1331,7 @@ def read_cnn_family(name, bundle, rng):
             else module.Prediction if ctc else module.Prediction.generator)
     with torch.no_grad():
         head.bias[tok.blank_id if ctc else tok.eos_id] += BLANK_BIAS if ctc else EOS_BIAS
-    ar_kernel.launches = attention.launches = attention.split_launches = 0
+    ar_kernel.launches = attention.launches = attention.split_launches = cnn.launches = 0
     positions = bundle.img_size[1] // 4 + 1 if ctc else bundle.cfg.num_steps
     charset = set(tok.charset)
     for B, x in batches.items():
@@ -1233,7 +1346,11 @@ def read_cnn_family(name, bundle, rng):
     launched = ar_kernel.launches + attention.launches + attention.split_launches
     if launched:
         raise AssertionError(f'{name}: its reads launched {launched} attention or AR kernels')
-    print(f'{name}: launches no TPU kernel')
+    if cnn.launches < len(batches):
+        raise AssertionError(f'{name}: its {len(batches)} reads launched the batch-norm pass '
+                             f'{cnn.launches} times')
+    print(f'{name}: launches no TPU kernel; the batch-norm pass {cnn.launches} times')
+    return cnn.launches
 
 
 def eval_phase(parseq_bundle, crnn_bundle, data_root):

@@ -2,10 +2,11 @@
 one switch that turns them all off.
 
 Every kernel's gate (B1: ops/ar_kernel.py:takes; B2 and B4:
-ops/attention.py:encoder_self_attention; B5: models/vit.py:takes_encoder_kernel)
-asks `enabled()`. Inside `plain()` each answers no, and the model runs its
-plain PyTorch path: for comparisons with the kernels, and for the FLOP
-count, which sees no product inside a kernel. Nothing else turns a kernel
+ops/attention.py:encoder_self_attention; B5: models/vit.py:takes_encoder_kernel;
+the batch-norm pass csrc/bn_act.cu: ops/cnn.py:takes_kernel) asks `enabled()`.
+Inside `plain()` each answers no, and the model runs its plain PyTorch path:
+for comparisons with the kernels, and for the FLOP count, which sees no
+product inside a kernel. Nothing else turns a kernel
 off, and nothing on the main path opens `plain()`.
 """
 

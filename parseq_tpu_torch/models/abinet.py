@@ -28,8 +28,13 @@ scores are a product in the compute dtype divided by sqrt(E) in that dtype,
 then an f32 softmax; nearest upsampling uses half-pixel centres
 (jax.image.resize 'nearest' == F.interpolate 'nearest-exact').
 
+Batch norms: each convolution's batch norm, with the shortcut and the ReLU
+after it, is one cnn.conv_bn, which runs as one launch of csrc/bn_act.cu on
+the card in eval mode with autograd off (ops/cnn.py:takes_kernel).
+
 Spans (utils/trace.py, each with device events and the attribute `rows`):
-abinet.vision around the vision model, holding abinet.backbone (resnet45),
+abinet.vision around the vision model, holding abinet.backbone (resnet45;
+the attribute `bn_kernel`: the launches of csrc/bn_act.cu in it, counted),
 abinet.transformer (its layers, kernel B2 inside) and
 abinet.position_attention (or abinet.attention, the `-sv` variant); then
 one abinet.iteration a language pass and its alignment, with the attribute
@@ -157,11 +162,14 @@ class _R45Block(nn.Module):
                                             nn.BatchNorm2d(cout))
 
     def forward(self, x):
-        out = F.relu(cnn.conv_bn(x, self.conv1, self.bn1))
-        out = cnn.conv_bn(out, self.conv2, self.bn2)
-        if self.downsample is not None:
-            x = cnn.conv_bn(x, self.downsample[0], self.downsample[1])
-        return F.relu(out + x)
+        """relu(bn1(conv1)), then relu(bn2(conv2) + shortcut): each a
+        cnn.conv_bn, one launch after the convolutions on the card."""
+        out = cnn.conv_bn(x, self.conv1, self.bn1, relu=True)
+        if self.downsample is None:
+            return cnn.conv_bn(out, self.conv2, self.bn2, relu=True, residual=x)
+        return cnn.conv_bn(out, self.conv2, self.bn2, relu=True,
+                           residual=cnn.conv2d(x, self.downsample[0]),
+                           residual_bn=self.downsample[1])
 
 
 class Resnet45(nn.Module):
@@ -178,7 +186,7 @@ class Resnet45(nn.Module):
 
     def forward(self, x):
         """x (B, 3, H, W) -> (B, 512, H/4, W/4)."""
-        x = F.relu(cnn.conv_bn(x, self.conv1, self.bn1))
+        x = cnn.conv_bn(x, self.conv1, self.bn1, relu=True)
         for li in range(len(_R45_BLOCKS)):
             for block in getattr(self, f'layer{li + 1}'):
                 x = block(x)
@@ -281,14 +289,14 @@ class PositionAttention(nn.Module):
         B, E, H, W = x.shape
         k, feats = x, []
         for stage in self.k_encoder:
-            k = F.relu(cnn.conv_bn(k, stage[0], stage[1]))
+            k = cnn.conv_bn(k, stage[0], stage[1], relu=True)
             feats.append(k)
         for i in range(3):
             k = F.interpolate(k, size=(k.shape[2] * 2, k.shape[3] * 2), mode='nearest-exact')
             stage = self.k_decoder[i]
-            k = F.relu(cnn.conv_bn(k, stage[1], stage[2])) + feats[2 - i]
+            k = cnn.conv_bn(k, stage[1], stage[2], relu=True) + feats[2 - i]
         k = F.interpolate(k, size=(H, W), mode='nearest-exact')
-        k = F.relu(cnn.conv_bn(k, self.k_decoder[3][1], self.k_decoder[3][2]))
+        k = cnn.conv_bn(k, self.k_decoder[3][1], self.k_decoder[3][2], relu=True)
 
         q = linear(self.pos_encoder.table(self.max_length, x.dtype), self.project.weight,
                    self.project.bias)  # (T, E)
@@ -413,8 +421,10 @@ class ABINet(nn.Module):
         heads = ('abinet.position_attention' if isinstance(V.attention, PositionAttention)
                  else 'abinet.attention')
         with trace.span('abinet.vision', device=True, rows=rows):
-            with trace.span('abinet.backbone', device=True, rows=rows):
+            launched = cnn.launches
+            with trace.span('abinet.backbone', device=True, rows=rows) as backbone:
                 x = V.backbone.resnet(images.permute(0, 3, 1, 2))
+                backbone.set(bn_kernel=cnn.launches - launched)
             B, E, H, W = x.shape
             if cfg.v_backbone == 'transformer':
                 with trace.span('abinet.transformer', device=True, rows=rows):

@@ -1,8 +1,9 @@
 """Spans: named, nested intervals of the program's host time, kept in memory
 so that a profiler trace can be read layer by layer.
 
-    with trace.span('eval.h2d', batch=i):
+    with trace.span('eval.h2d', batch=i) as s:
         ...
+        s.set(rows=n)    # an attribute known only inside the block
 
 A span records its name, start and end, the span open around it on the
 same thread (its parent), the thread, and its keyword attributes. With
@@ -50,6 +51,9 @@ class _Off:
     def __exit__(self, *exc):
         return False
 
+    def set(self, **attrs):
+        pass
+
 
 _OFF = _Off()
 
@@ -83,6 +87,10 @@ class _Span:
             self.events[1].record()
         _local.stack.pop()
         return False
+
+    def set(self, **attrs):
+        """Add attributes known only inside the block."""
+        self.attrs.update(attrs)
 
 
 def span(name, device=False, **attrs):

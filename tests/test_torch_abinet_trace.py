@@ -2,7 +2,8 @@
 widths, read through eval_dataset as the benchmark's read cell reads it:
 abinet.vision holds abinet.backbone, abinet.transformer and
 abinet.position_attention, then one abinet.iteration a language pass and
-its alignment, numbered 0 to iter_size - 1; nothing is recorded while
+its alignment, numbered 0 to iter_size - 1; abinet.backbone counts the
+launches of csrc/bn_act.cu in it (`bn_kernel`); nothing is recorded while
 recording is off. Marked `gpu` (skipped without a card): ABINet's read
 forward at its published widths never makes the host wait for the card.
 
@@ -13,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from parseq_tpu_torch import kernels
+from parseq_tpu_torch.ops import cnn
 from parseq_tpu_torch.train.evaluate import eval_dataset
 from parseq_tpu_torch.utils import registry, trace
 
@@ -65,6 +68,35 @@ def test_spans_nest_under_the_forward(bundle):
     assert spans[vision]['end_ns'] <= iterations[0]['start_ns']
 
 
+@pytest.mark.parametrize('launching', [False, True], ids=['cpu', 'counted_launches'])
+def test_the_backbone_span_says_whether_its_batch_norms_ran_as_the_kernel(bundle, monkeypatch,
+                                                                          launching):
+    """abinet.backbone carries `bn_kernel`, the launches of csrc/bn_act.cu
+    counted in it: 0 on the CPU and in training mode. With a stand-in for
+    the launch that counts as the kernel does (eval mode, outside
+    kernels.plain()), the read forward's ResNet45 counts its 45 sites: the
+    attribute reads what ran, not what the gate predicts."""
+    if launching:
+        def launch(y, bn, relu=False, residual=None, residual_bn=None):
+            cnn.launches += 1
+            with kernels.plain():
+                return cnn.bn_act(y, bn, relu, residual, residual_bn)
+
+        monkeypatch.setattr(cnn, 'takes_kernel', lambda y, bn, residual=None, residual_bn=None:
+                            not bn.training and kernels.enabled())
+        monkeypatch.setattr(cnn, '_launch', launch)
+    with trace.recording():
+        _read(bundle)
+        with torch.no_grad():
+            bundle.module.train()
+            try:
+                bundle.module.vision_forward(torch.zeros(1, 32, 64, 3))
+            finally:
+                bundle.module.eval()
+    backbone = [s['attrs'] for s in trace.spans() if s['name'] == 'abinet.backbone']
+    assert [a['bn_kernel'] for a in backbone] == [45 if launching else 0, 0]
+
+
 def test_nothing_is_recorded_while_off(bundle):
     _read(bundle)
     assert trace.spans() == []
@@ -88,7 +120,7 @@ def test_read_forward_never_synchronizes():
     images = (2 * images - 1).to('cuda')
     bundle(images)
     torch.cuda.synchronize()
-    launches = attention.launches
+    launches, bn_launches = attention.launches, cnn.launches
     with trace.recording():
         torch.cuda.set_sync_debug_mode('error')
         try:
@@ -96,6 +128,10 @@ def test_read_forward_never_synchronizes():
         finally:
             torch.cuda.set_sync_debug_mode('default')
     assert attention.launches == launches + bundle.cfg.v_num_layers
+    # ResNet45's 50 batch norms in 45 launches, the U-Net's 8 in 8
+    assert cnn.launches == bn_launches + 45 + 8
+    assert [s['attrs']['bn_kernel'] for s in trace.spans()
+            if s['name'] == 'abinet.backbone'] == [45]
     assert [s['attrs']['iteration'] for s in trace.spans()
             if s['name'] == 'abinet.iteration'] == [0, 1, 2]
     assert logits.shape == (8, bundle.cfg.max_length, bundle.cfg.num_classes)

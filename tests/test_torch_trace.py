@@ -61,6 +61,18 @@ def test_off_records_nothing_reads_no_clock_and_calls_no_cuda(monkeypatch):
     assert trace.spans() == []
 
 
+@pytest.mark.parametrize('on', [False, True], ids=['off', 'on'])
+def test_set_adds_attributes_inside_the_block(on):
+    """A span's `set` adds attributes known only inside its block, beside
+    those it opened with; while off it does nothing."""
+    with trace.recording() if on else contextlib.nullcontext():
+        with trace.span('outer', batch=3) as outer:
+            outer.set(rows=7)
+            outer.set(rows=8, found=True)
+    assert trace.spans() == [] if not on else (
+        [s['attrs'] for s in trace.spans()] == [{'batch': 3, 'rows': 8, 'found': True}])
+
+
 @pytest.mark.parametrize('on', ['profiler', 'recording'])
 def test_on_spans_nest_and_each_thread_has_its_own_stack(on):
     ctx = (profile(activities=[ProfilerActivity.CPU]) if on == 'profiler'
